@@ -6,30 +6,49 @@ target sm_90a).
 Phases, each of which exits non-zero on failure:
 
 1. the card (`nvidia-smi` name and power limit) and the kernel build
-   (`nvcc`, one process per source, from lmrl_gym_torch/csrc/);
+   (`nvcc`, one process per source, all started together, from
+   lmrl_gym_torch/csrc/);
 2. each CUDA kernel against its plain PyTorch version on the card, at the
-   serving path's shapes (B=512, H=12, Dh=64) in bf16 and f32, with the max
-   abs error, its tolerance, and the kernel, plain and library
-   (scaled_dot_product_attention, a yardstick the port never calls) times;
-3. the slice at full width: value-guided Wordle serving with GPT-2-small
+   serving path's shapes (B=512, H=12, Dh=64) and, for the flash forward
+   and backward kernels, the training shapes (B=32, H=12, T=160, Dh=64,
+   with a left-padded and a right-aligned Tq < S case; the forward also at
+   the next window's T=16) in bf16 and f32, with the
+   max abs error, its tolerance, and the kernel, plain and library
+   (scaled_dot_product_attention, forward or backward, a yardstick the port
+   never calls) times;
+3. serving at full width: value-guided Wordle serving with GPT-2-small
    (vocab 50,257 padded to 50,304), bf16 weights from a seed, two trunks,
    twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and five
    timed `rollout_wordle`s, each with the kernels' launch counts and the
    rollout's invariants checked, and one more under torch.profiler for the
    device busy time, idle share and device time by kernel category; then
    `ValueGuidedServer.generate_from_strs` answers 4 left-padded prompts;
-4. the same full-width weights at B=4 on the card (kernels, bf16) against
-   the CPU (plain path, f32): header prefill plus 3 decode steps;
-5. a `{"kernels": [...]}` line: per kernel its launches on the main path
-   and its mean time per launch over the main path's shapes beside the
-   bound (bytes or FLOPs at the H100's published peaks), the plain
-   version's and the library call's.
+3t. training at full width, at `bench.py::bench_ilql_real_vocab`'s
+   operating point: the ILQL train step on GPT-2-small (f32 parameters,
+   bf16 activations), twin MLP Q heads (hidden 1536, out 50,304) and a V
+   head, a separate target base, AdamW, B=32, T=160, next window 16 — one
+   warm-up and ten timed steps, each with its launch counts (36 flash_fwd,
+   12 flash_bwd_dq, 12 flash_bwd_dkv) and a finite loss checked, then one
+   more under torch.profiler; then three BC steps on the same trunk
+   (12/12/12 launches);
+4. the same full-width serving weights at B=4 on the card (kernels, bf16)
+   against the CPU (plain path, f32): header prefill plus 3 decode steps;
+   and one full-width ILQL step (f32, B=2, T=32) on the card against the
+   CPU: loss within 1e-4 relative, each parameter group's gradient within
+   1e-3 in relative norm;
+5. a `{"kernels": [...]}` line: per kernel its launches on its path (per
+   rollout, or per train step) and its mean time per launch over that
+   path's shapes beside the bound (bytes or FLOPs at the H100's published
+   peaks), the plain version's and the library call's. flash_fwd runs on
+   both paths: its main keys are the rollout's, and the `*_train_step`
+   keys the same numbers for one ILQL train step.
 
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA device the
 script exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -37,7 +56,16 @@ import time
 
 import torch
 
+from lmrl_gym_torch.algos.bc import BCBatch, BCConfig, BCTrainState, make_bc_train_step
+from lmrl_gym_torch.algos.ilql import (
+    ILQLBatch,
+    ILQLConfig,
+    ilql_loss_and_grads,
+    init_ilql_state,
+    make_ilql_train_step,
+)
 from lmrl_gym_torch.algos.value_policy import ValueGuidedServer, ValueRLParams
+from lmrl_gym_torch.core.optimizer import TrainState, adamw
 from lmrl_gym_torch.envs.wordle.vector import N_TRIES, WordleVectorEnv, WordleVocab
 from lmrl_gym_torch.loops import actor
 from lmrl_gym_torch.models.config import gpt2_small
@@ -47,7 +75,16 @@ from lmrl_gym_torch.models.interface import LMCore
 from lmrl_gym_torch.models.transformer import Transformer, init_params
 from lmrl_gym_torch.ops import _build
 from lmrl_gym_torch.ops.decode_attention import _plain_decode_attention, decode_attention
-from lmrl_gym_torch.ops.flash_attention import _NEG_BIG, _plain_attention, flash_fwd
+from lmrl_gym_torch.ops.flash_attention import (
+    _NEG_BIG,
+    _delta,
+    _plain_attention,
+    _plain_bwd_dkv,
+    _plain_bwd_dq,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_fwd,
+)
 from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -59,10 +96,20 @@ B, H, DH, T_MAX = 512, 12, 64, actor.EPISODE_LEN
 # order only. bf16: two bf16 ulps, since both round the output (and the
 # plain version its probabilities) to bf16.
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-2, 2.0**-6)}
+# backward kernels vs plain: f32 adds 1e-5 relative (dK sums up to 160
+# query rows); bf16 as the forward
+GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 2.0**-6)}
 # card (bf16 weights/activations, kernels) vs CPU (f32, plain path) logits
 # after 12 layers: bf16 keeps ~3 significant digits per op, logits ~ ±3
 LOGIT_TOL = 0.1
 ROLLOUT_REPS = 5  # timed rollouts; the median is reported beside min and max
+# training: bench.py::bench_ilql_real_vocab's operating point
+TRAIN_B, TRAIN_T, NEXT_T = 32, 160, 16
+TRAIN_REPS = 10
+PAD_ID = 50256  # as bench.py passes it (no batch token is a pad)
+# card vs CPU ILQL step in f32 at full width: TF32 is off, so only the
+# summation order differs (~1e-6 relative per op)
+STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-4, 1e-3
 
 
 class SmokeFailure(Exception):
@@ -89,6 +136,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time per call: the sum of the device times of the
+    kernels `reps` calls launch, under torch.profiler. For calls whose host
+    work outlasts their device work (autograd around a small library
+    kernel), where CUDA events would time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(total > 0, "the profiler recorded no device time")
+    return total / reps
 
 
 def excess(out, ref, dtype):
@@ -119,13 +185,39 @@ def decode_work(n_keys: int, dtype) -> tuple:
     return n_bytes, 4.0 * B * H * DH * n_keys
 
 
-def sdpa_mask(bias, Tq: int, S: int):
-    """Boolean [B,1,Tq,S] mask (True = attend) for the library yardstick."""
+def bwd_work(b: int, Tq: int, S: int, dtype, kernel: str, with_bias: bool) -> tuple:
+    """Bytes and FLOPs of one backward kernel over the causal (query, key)
+    pairs. Both read q, k, v, dO, lse and Δ (and the bias when given); K2
+    writes dQ and does QKᵀ, dO·Vᵀ and dS·K (6·Dh FLOPs per pair), K3 writes
+    dK and dV and adds Pᵀ·dO and dSᵀ·Q (8·Dh per pair)."""
+    es = torch.finfo(dtype).bits // 8
+    n_q, n_kv = b * H * Tq * DH, b * H * S * DH
+    n_bytes = es * (2 * n_q + 2 * n_kv) + 4 * 2 * b * H * Tq + (4 * b * S if with_bias else 0)
+    n_bytes += es * (n_q if kernel == "dq" else 2 * n_kv)
+    pairs = b * H * sum(S - Tq + i + 1 for i in range(Tq))
+    return n_bytes, (6.0 if kernel == "dq" else 8.0) * DH * pairs
+
+
+def sdpa_mask(bias, Tq: int, S: int, b: int = B):
+    """Boolean [b,1,Tq,S] mask (True = attend) for the library yardstick."""
     q_pos = torch.arange(Tq, device="cuda") + (S - Tq)
     mask = (q_pos[:, None] >= torch.arange(S, device="cuda")[None, :])[None, None]
     if bias is not None:
         mask = mask & (bias == 0)[:, None, None, :]
-    return mask.expand(B, 1, Tq, S)
+    return mask.expand(b, 1, Tq, S)
+
+
+def sdpa_bwd_ms(q, k, v, bias, dout, scale: float, causal_only: bool) -> float:
+    """The library yardstick for K2 + K3 together: scaled_dot_product_attention's
+    backward, timed as device time of (forward + backward) − forward."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    Tq, S = q.shape[2], k.shape[2]
+    kw = dict(is_causal=True) if causal_only else dict(attn_mask=sdpa_mask(bias, Tq, S, q.shape[0]))
+    with torch.enable_grad():
+        t_fb = device_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs, scale=scale, **kw), (qs, ks, vs), dout))
+        t_f = device_ms(lambda: sdpa(qs, ks, vs, scale=scale, **kw))
+    return t_fb - t_f
 
 
 def phase_device() -> str:
@@ -138,7 +230,7 @@ def phase_device() -> str:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    reports = _build.build_all(["flash_fwd", "decode_attn"])
+    reports = _build.build_all(["flash_fwd", "flash_bwd", "decode_attn"])
     log(f"kernel build: {time.perf_counter() - t0:.2f} s for {sorted(reports) or 'nothing (cached)'}")
     for name, report in sorted(reports.items()):
         for line in report.splitlines():
@@ -169,6 +261,23 @@ def _decode_inputs(index, dtype, padded, gen):
     return q, k, v, bias
 
 
+def _check_fwd(q, k, v, bias, rows, dtype, label: str) -> tuple:
+    """flash_fwd against _plain_attention on the same inputs: out within
+    TOL and lse within 1e-3 on the query rows that see a key (`rows`,
+    [b, Tq]; fully padded rows hold garbage in both). Returns (max abs
+    error of out, of lse)."""
+    scale = 1.0 / DH**0.5
+    out, lse = flash_fwd(q, k, v, bias, True, scale)
+    ref, ref_lse = _plain_attention(q, k, v, bias, True, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().amax(dim=(1, 3))[rows].max().item()
+    over = excess(out, ref, dtype).amax(dim=(1, 3))[rows].max().item()
+    lse_err = (lse - ref_lse).abs()[rows[:, None, :].expand_as(lse)].max().item()
+    check(over <= TOL[dtype][0], f"flash_fwd {label} {dtype}: max abs err {err} over tolerance {TOL[dtype]}")
+    check(lse_err <= 1e-3, f"flash_fwd {label} {dtype}: lse err {lse_err}")
+    return err, lse_err
+
+
 def phase_kernel_checks() -> dict:
     """Kernel vs plain on the card; returns {kernel: max abs error}."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -178,16 +287,8 @@ def phase_kernel_checks() -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         for Tq, S, padded in ((8, 8, False), (10, 128, False), (64, 64, True)):
             q, k, v, bias = _flash_inputs(Tq, S, dtype, padded, gen)
-            out, lse = flash_fwd(q, k, v, bias, True, scale)
-            ref, ref_lse = _plain_attention(q, k, v, bias, True, scale)
-            torch.cuda.synchronize()
-            # fully padded query rows hold garbage in both: compare rows that see a key
             rows = torch.ones(B, Tq, dtype=torch.bool, device="cuda") if bias is None else bias[:, S - Tq:] == 0
-            err = (out.float() - ref.float()).abs().amax(dim=(1, 3))[rows].max().item()
-            over = excess(out, ref, dtype).amax(dim=(1, 3))[rows].max().item()
-            lse_err = (lse - ref_lse).abs()[rows[:, None, :].expand_as(lse)].max().item()
-            check(over <= TOL[dtype][0], f"flash_fwd Tq={Tq} S={S} {dtype}: max abs err {err} over tolerance {TOL[dtype]}")
-            check(lse_err <= 1e-3, f"flash_fwd Tq={Tq} S={S} {dtype}: lse err {lse_err}")
+            err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"B={B} Tq={Tq} S={S}")
             errs["flash_fwd"] = max(errs["flash_fwd"], err)
             mask = sdpa_mask(bias, Tq, S)
             t_k = cuda_ms(lambda: flash_fwd(q, k, v, bias, True, scale))
@@ -216,6 +317,118 @@ def phase_kernel_checks() -> dict:
                     f"max_abs_err={err:.3e} (atol, rtol {TOL[dtype]}) "
                     f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f}")
     return errs
+
+
+def _bwd_inputs(Tq, S, dtype, padded, gen, b=TRAIN_B):
+    """One backward's inputs as the trunk makes them: q/k/v views into a
+    fused [b, S, 3, H, Dh] projection, the forward's out and lse, a
+    cotangent zero on fully masked (left-pad) query rows, and Δ; and the
+    [b, Tq] mask of query rows that see a key."""
+    qkv = torch.randn(b, S, 3, H, DH, device="cuda", generator=gen).to(dtype)
+    q = qkv[:, S - Tq:, 0].transpose(1, 2)
+    k, v = qkv[:, :, 1].transpose(1, 2), qkv[:, :, 2].transpose(1, 2)
+    bias = torch.zeros(b, S, device="cuda")
+    rows = torch.ones(b, Tq, dtype=torch.bool, device="cuda")
+    if padded:
+        n_pad = torch.randint(0, S, (b,), device="cuda", generator=gen)
+        bias = torch.where(torch.arange(S, device="cuda")[None, :] >= n_pad[:, None], 0.0, _NEG_BIG).float()
+        rows = bias[:, S - Tq:] == 0
+    out, lse = flash_fwd(q, k, v, bias, True, 1.0 / DH**0.5)
+    dout = torch.randn(b, Tq, H, DH, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+    dout = dout * rows[:, None, :, None].to(dtype)
+    return (q, k, v, bias, lse, _delta(out, dout), dout), rows
+
+
+def phase_bwd_checks() -> dict:
+    """K1, K2 and K3 against their plain versions on the card at the
+    training shapes (B=32, H=12, Dh=64): T=160 with the trunk's all-zero
+    bias, T=160 left-padded, and Tq=96 queries right-aligned over S=160
+    keys; and K1 alone at the next-window forward's T=16, with and without
+    padding. K1 is checked on the inputs the backward kernels then take."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    scale = 1.0 / DH**0.5
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for T, padded in ((NEXT_T, False), (NEXT_T, True)):
+            (q, k, v, bias, *_), rows = _bwd_inputs(T, T, dtype, padded, gen)
+            err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"B={TRAIN_B} Tq=S={T} left_pad={padded}")
+            errs["flash_fwd"] = max(errs["flash_fwd"], err)
+            log(f"check flash_fwd B={TRAIN_B} H={H} Tq={T} S={T} left_pad={padded} {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3e} (atol, rtol {TOL[dtype]}) lse_err={lse_err:.3e}")
+        for Tq, S, padded in ((TRAIN_T, TRAIN_T, False), (TRAIN_T, TRAIN_T, True), (96, TRAIN_T, False)):
+            args, rows = _bwd_inputs(Tq, S, dtype, padded, gen)
+            q, k, v, bias, lse, delta, dout = args
+            fwd_err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"B={TRAIN_B} Tq={Tq} S={S} left_pad={padded}")
+            errs["flash_fwd"] = max(errs["flash_fwd"], fwd_err)
+            dq = flash_bwd_dq(*args, True, scale)
+            dk, dv = flash_bwd_dkv(*args, True, scale)
+            ref_dq = _plain_bwd_dq(*args, True, scale)
+            ref_dk, ref_dv = _plain_bwd_dkv(*args, True, scale)
+            torch.cuda.synchronize()
+            line = [f"flash_fwd_max_abs_err={fwd_err:.3e} lse_err={lse_err:.3e}"]
+            for name, pairs in (("flash_bwd_dq", ((dq, ref_dq),)), ("flash_bwd_dkv", ((dk, ref_dk), (dv, ref_dv)))):
+                err = max((a.float() - r.float()).abs().max().item() for a, r in pairs)
+                over = max(((a.float() - r.float()).abs() - GRAD_TOL[dtype][1] * r.float().abs()).max().item()
+                           for a, r in pairs)
+                check(over <= GRAD_TOL[dtype][0], f"{name} Tq={Tq} S={S} bias={padded} {dtype}: max abs err {err} "
+                                                  f"over tolerance {GRAD_TOL[dtype]}")
+                errs[name] = max(errs[name], err)
+                line.append(f"{name}_max_abs_err={err:.3e}")
+            t_dq = cuda_ms(lambda: flash_bwd_dq(*args, True, scale))
+            t_dkv = cuda_ms(lambda: flash_bwd_dkv(*args, True, scale))
+            t_pdq = cuda_ms(lambda: _plain_bwd_dq(*args, True, scale))
+            t_pdkv = cuda_ms(lambda: _plain_bwd_dkv(*args, True, scale))
+            t_lib = sdpa_bwd_ms(q, k, v, bias, dout, scale, causal_only=not padded and Tq == S)
+            log(f"check flash_bwd B={TRAIN_B} H={H} Tq={Tq} S={S} offset={S - Tq} left_pad={padded} {str(dtype)[6:]}: "
+                + " ".join(line) + f" (atol, rtol fwd {TOL[dtype]}, bwd {GRAD_TOL[dtype]}) dq_ms={t_dq:.4f} dkv_ms={t_dkv:.4f} "
+                f"plain_dq_ms={t_pdq:.4f} plain_dkv_ms={t_pdkv:.4f} library_bwd_ms={t_lib:.4f}")
+    return errs
+
+
+def phase_train_shapes() -> dict:
+    """Per-launch times at the shapes one ILQL train step launches, bf16
+    with the trunk's all-zero bias: K2 and K3 at T=160 (12 each per step;
+    the library yardstick is SDPA's backward, one device time for the
+    pair); K1 at
+    T=160 (24 per step: trained and target trunk) and T=16 (12: the
+    next-window forward), logged per shape and returned as the mean over
+    the step's 36 launches under "flash_fwd_train_step"."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    scale = 1.0 / DH**0.5
+    dtype = torch.bfloat16
+    args, _ = _bwd_inputs(TRAIN_T, TRAIN_T, dtype, False, gen)
+    q, k, v, bias, lse, delta, dout = args
+    lib = sdpa_bwd_ms(q, k, v, bias, dout, scale, causal_only=True)
+    out = {}
+    for name, fn, plain, kind in (("flash_bwd_dq", flash_bwd_dq, _plain_bwd_dq, "dq"),
+                                  ("flash_bwd_dkv", flash_bwd_dkv, _plain_bwd_dkv, "dkv")):
+        t_b, by = bound_ms(*bwd_work(TRAIN_B, TRAIN_T, TRAIN_T, dtype, kind, True), dtype)
+        out[name] = dict(ms=cuda_ms(lambda: fn(*args, True, scale)), plain_ms=cuda_ms(lambda: plain(*args, True, scale)),
+                         library_ms=lib, bound_ms=t_b, bound_by=by)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, n_bytes=0.0, flops=0.0)
+    for T, per_step in ((TRAIN_T, 2), (NEXT_T, 1)):  # launches per layer and step at this shape
+        (fq, fk, fv, fbias, *_), _ = _bwd_inputs(T, T, dtype, False, gen)
+        row = dict(ms=cuda_ms(lambda: flash_fwd(fq, fk, fv, fbias, True, scale)),
+                   plain_ms=cuda_ms(lambda: _plain_attention(fq, fk, fv, fbias, True, scale)),
+                   library_ms=device_ms(lambda: sdpa(fq, fk, fv, is_causal=True, scale=scale)))
+        n_bytes, flops = (x * TRAIN_B / B for x in flash_work(T, T, dtype))
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, flops, dtype)
+        log(f"train-step shapes flash_fwd B={TRAIN_B} T={T} (bf16, per launch): "
+            + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
+        for key in ("ms", "plain_ms", "library_ms"):
+            fwd[key] += per_step * row[key] / 3
+        fwd["n_bytes"] += per_step * n_bytes / 3
+        fwd["flops"] += per_step * flops / 3
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(fwd.pop("n_bytes"), fwd.pop("flops"), dtype)
+    out["flash_fwd_train_step"] = fwd
+    log("train-step shapes flash_fwd (bf16, mean over a step's launches): "
+        + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in fwd.items()))
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        row = out[name]
+        log(f"train-step shapes {name} B={TRAIN_B} T={TRAIN_T} (bf16, per launch; library = SDPA backward of the pair): "
+            + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
+    return out
 
 
 def phase_main_path_shapes() -> dict:
@@ -270,10 +483,16 @@ def phase_main_path_shapes() -> dict:
 def _reset_counts():
     flash_fwd.launches = 0
     decode_attention.launches = 0
+    flash_bwd_dq.launches = 0
+    flash_bwd_dkv.launches = 0
 
 
 def _counts():
     return flash_fwd.launches, decode_attention.launches
+
+
+def _train_counts():
+    return flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches
 
 
 def _check_rollout(out, env) -> None:
@@ -300,11 +519,12 @@ def _check_rollout(out, env) -> None:
 
 
 def _kernel_category(name: str) -> str:
-    if "flash_fwd_kernel" in name:
-        return "flash_fwd"
-    if "decode_attn_kernel" in name:
-        return "decode_attn"
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attn"):
+        if f"{kernel}_kernel" in name:
+            return kernel
     low = name.lower()
+    if "multi_tensor_apply" in low:
+        return "optimizer (foreach)"
     if "gemm" in low or "nvjet" in low or "cutlass" in low or "xmma" in low:
         return "gemm f32" if "f32f32" in low or "sgemm" in low else "gemm bf16"
     if "elementwise" in low or "vectorized" in low:
@@ -314,11 +534,11 @@ def _kernel_category(name: str) -> str:
     return "other"
 
 
-def profile_rollout(run, unprofiled_s: float) -> None:
-    """One more rollout under torch.profiler: device busy time (one stream,
-    so the sum of kernel times) against the wall clock of this rollout and
-    of the unprofiled median one, the device time by kernel category and the
-    top kernels."""
+def profile_run(label: str, run, unprofiled_s: float) -> None:
+    """One more run (a rollout, a train step) under torch.profiler: device
+    busy time (one stream, so the sum of kernel times) against the wall
+    clock of this run and of the unprofiled one, the device time by kernel
+    category and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -329,8 +549,8 @@ def profile_rollout(run, unprofiled_s: float) -> None:
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     check(busy_ms > 0, "the profiler recorded no device time")
-    log(f"profile: wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} idle_share={1 - busy_ms / wall_ms:.3f} "
-        f"(against the unprofiled median rollout: {1 - busy_ms / (unprofiled_s * 1e3):.3f})")
+    log(f"profile {label}: wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} idle_share={1 - busy_ms / wall_ms:.3f} "
+        f"(against the unprofiled {label}: {1 - busy_ms / (unprofiled_s * 1e3):.3f})")
     by_cat: dict = {}
     for e in kernels:
         cat = _kernel_category(e.key)
@@ -383,8 +603,8 @@ def phase_slice() -> dict:
     log(f"rollout median of {ROLLOUT_REPS}: {dt:.4f} s (min {min(times):.4f}, max {max(times):.4f}), "
         f"env_steps_per_s={B * N_TRIES / dt:.1f} tokens_per_s={B * actor.EPISODE_LEN / dt:.1f} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    profile_rollout(
-        lambda: actor.rollout_wordle(env, step_fn, params, carry0, B, constrain_vocab=True, generator=gen), dt
+    profile_run(
+        "rollout", lambda: actor.rollout_wordle(env, step_fn, params, carry0, B, constrain_vocab=True, generator=gen), dt
     )
 
     server = ValueGuidedServer(core, ByteTokenizer(), beta=32.0, share_trunk=False)
@@ -435,6 +655,147 @@ def phase_card_vs_cpu(base, config) -> float:
     return err
 
 
+def _train_batch(device="cuda", b=TRAIN_B, t=TRAIN_T, nt=NEXT_T, seed=0) -> ILQLBatch:
+    """bench.py's ILQL batch: random byte tokens, actions on every other
+    token with reward −1 each, no episode done, a next window of nt tokens
+    whose episode is done."""
+    g = torch.Generator().manual_seed(seed)
+    sta = torch.zeros(b, t - 1, dtype=torch.bool)
+    sta[:, 1::2] = True
+    batch = ILQLBatch(
+        input_ids=torch.randint(1, 256, (b, t), generator=g), should_take_action=sta, rewards=-1.0 * sta.float(),
+        dones=torch.zeros(b, dtype=torch.bool), next_token_ids=torch.randint(1, 256, (b, nt), generator=g),
+        next_dones=torch.ones(b, dtype=torch.bool),
+    )
+    return ILQLBatch(*(x.to(device) for x in batch))
+
+
+def _train_modules(config, device, seed=0, layer2_initializer_range=0.0):
+    """Trunk (f32 parameters) and the twin MLP Q heads and V head at hidden
+    2·D, second layer zero-initialized as bench.py builds them."""
+    D = config.hidden_size
+    q_cfg = MLPHeadConfig(D, 2 * D, config.padded_vocab_size, layer2_initializer_range=layer2_initializer_range)
+    v_cfg = MLPHeadConfig(D, 2 * D, 1, layer2_initializer_range=layer2_initializer_range)
+    return (init_params(config, seed=seed, device=device), MLPHead(q_cfg, device=device, seed=seed + 1),
+            MLPHead(q_cfg, device=device, seed=seed + 2), MLPHead(v_cfg, device=device, seed=seed + 3))
+
+
+def _n_params(module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def ilql_update_flops(config, n_base: int, n_head: int, n_v: int) -> float:
+    """One ILQL update's FLOPs as bench.py counts them (bench.py:319-337):
+    the trained trunk forward+backward, the target and next-window trunk
+    forwards, forward+backward of q1/q2/v, the target heads' forwards and
+    the attention products."""
+    L, Hh, Dh = config.num_layers, config.num_heads, config.head_dim
+    tok_main, tok_next = TRAIN_B * TRAIN_T, TRAIN_B * NEXT_T
+    attn_fwd = 4 * L * Hh * Dh * TRAIN_T * tok_main
+    return (tok_main * 6 * n_base + tok_main * 2 * n_base + tok_next * 2 * n_base
+            + tok_main * (2 * 6 * n_head + 6 * n_v) + tok_main * 2 * 2 * n_head + 3 * attn_fwd)
+
+
+def phase_train(config) -> dict:
+    """The ILQL train step at bench.py::bench_ilql_real_vocab's operating
+    point, then three BC steps on the same trunk."""
+    L = config.num_layers
+    want = (3 * L, L, L)  # trained, target and next-window trunk forwards; one backward
+    core = LMCore(config)
+    t0 = time.perf_counter()
+    base, q1, q2, v = _train_modules(config, "cuda")
+    ilql_config = ILQLConfig()
+    state = init_ilql_state(base, q1, q2, v, adamw(1e-4), adamw(1e-3), ilql_config)
+    step = make_ilql_train_step(core, ilql_config, PAD_ID)
+    batch = _train_batch()
+    torch.cuda.synchronize()
+    log(f"train setup (gpt2-small f32 params, bf16 activations, separate target base, twin MLP Q heads + V head, "
+        f"B={TRAIN_B} T={TRAIN_T} next={NEXT_T}): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    state, loss, _ = step(state, batch)
+    check(bool(torch.isfinite(loss)), f"warm-up ILQL loss {loss.item()}")
+    log(f"warm-up ILQL step: {time.perf_counter() - t0:.3f} s, loss {loss.item():.4f}")
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    t_all = time.perf_counter()
+    for _ in range(TRAIN_REPS):
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, loss, logs = step(state, batch)
+        # host time of the call: the host blocks once CUDA's launch queue is
+        # full, so a value near the step time means the device sets the pace
+        times.append(time.perf_counter() - t0)
+        counts = _train_counts()
+        check(counts == want, f"ILQL step launched flash_fwd/bwd_dq/bwd_dkv {counts}, want {want}")
+        step_counts = counts
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_all
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), f"ILQL losses {losses.tolist()}")
+    flops = ilql_update_flops(config, _n_params(base), _n_params(q1), _n_params(v))
+    ups = TRAIN_REPS / dt
+    log(f"ILQL train: {TRAIN_REPS} steps in {dt:.4f} s: updates_per_s={ups:.3f} tokens_per_s={ups * TRAIN_B * TRAIN_T:.1f} "
+        f"mfu={flops * ups / PEAK_FLOPS[torch.bfloat16]:.4f} (bench.py's count {flops / 1e12:.3f} TFLOP per update "
+        f"over 989 TF/s) peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"host_ms_per_step_call={1e3 * sum(times) / len(times):.1f}; launches per step {want}; "
+        f"losses {[round(x, 4) for x in losses.tolist()]}; last logs q1_loss={logs['losses']['q1_loss'].item():.4f} "
+        f"v_loss={logs['losses']['v_loss'].item():.4f} q1_cql={logs['losses']['q1_cql_loss'].item():.4f}")
+    profile_run("train step", lambda: step(state, batch), dt / TRAIN_REPS)
+
+    bc_state = BCTrainState(TrainState(state.base.params, adamw(1e-4)))
+    bc_step = make_bc_train_step(core, BCConfig(), PAD_ID)
+    training_mask = torch.zeros(TRAIN_B, TRAIN_T, dtype=torch.int32, device="cuda")
+    training_mask[:, 2::2] = 1  # the action tokens of the ILQL batch
+    bc_batch = BCBatch(batch.input_ids, training_mask)
+    for i in range(3):
+        _reset_counts()
+        t0 = time.perf_counter()
+        bc_state, bc_loss, _ = bc_step(bc_state, bc_batch)
+        torch.cuda.synchronize()
+        counts = _train_counts()
+        check(counts == (L, L, L), f"BC step launched {counts}, want {(L, L, L)}")
+        check(bool(torch.isfinite(bc_loss)), f"BC loss {bc_loss.item()}")
+        log(f"BC step {i} B={TRAIN_B} T={TRAIN_T}: {time.perf_counter() - t0:.4f} s, loss {bc_loss.item():.4f}, "
+            f"launches {counts}")
+    return dict(zip(("flash_fwd_train_step", "flash_bwd_dq", "flash_bwd_dkv"), step_counts))
+
+
+def phase_train_card_vs_cpu(config) -> None:
+    """One full-width ILQL step's loss and gradients, f32, B=2, T=32: the
+    card (kernels) against the CPU (plain versions). Heads with a nonzero
+    second layer, so every group's gradient is nonzero."""
+    cfg = config.replace(dtype="float32")
+    cpu_modules = _train_modules(cfg, "cpu", seed=5, layer2_initializer_range=None)
+    batch = _train_batch("cpu", b=2, t=32, nt=8, seed=1)
+    runs = []
+    for d in ("cuda", "cpu"):
+        mods = [copy.deepcopy(m).to(d) for m in cpu_modules]
+        state = init_ilql_state(*mods, adamw(1e-4), adamw(1e-3), ILQLConfig())
+        _reset_counts()
+        loss, _, grads = ilql_loss_and_grads(LMCore(cfg, device=d), state, ILQLBatch(*(x.to(d) for x in batch)),
+                                             ILQLConfig(), PAD_ID)
+        if d == "cuda":
+            L = cfg.num_layers
+            check(_train_counts() == (3 * L, L, L), f"card step launches {_train_counts()}")
+        runs.append((loss.item(), [{k: g.cpu() for k, g in group.items()} for group in grads]))
+        del state, mods
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    rel = {}
+    for name, ga, gb in zip(("base", "q1", "q2", "v"), g_card, g_cpu):
+        num = sum(((ga[k] - gb[k]).double() ** 2).sum() for k in gb) ** 0.5
+        den = sum((gb[k].double() ** 2).sum() for k in gb) ** 0.5
+        rel[name] = float(num / den)
+    log(f"ILQL step card (f32, kernels) vs CPU (f32, plain), full width B=2 T=32: loss {l_card:.6f} vs {l_cpu:.6f} "
+        f"(rel {rel_loss:.2e}, tol {STEP_LOSS_RTOL}); gradient rel norm diff "
+        + " ".join(f"{k}={v:.2e}" for k, v in rel.items()) + f" (tol {STEP_GRAD_RTOL})")
+    check(rel_loss <= STEP_LOSS_RTOL, f"card vs CPU ILQL loss rel diff {rel_loss}")
+    for name, r in rel.items():
+        check(r <= STEP_GRAD_RTOL, f"card vs CPU ILQL {name} gradient rel diff {r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
@@ -443,21 +804,29 @@ def main() -> int:
     try:
         card = phase_device()
         errs = phase_kernel_checks()
+        for name, err in phase_bwd_checks().items():
+            errs[name] = max(errs.get(name, 0.0), err)
         shapes = phase_main_path_shapes()
+        shapes.update(phase_train_shapes())
         launches = phase_slice()
+        launches.update(phase_train(launches["config"]))
         phase_card_vs_cpu(launches["base"], launches["config"])
+        phase_train_card_vs_cpu(launches["config"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     replaces = {
         "flash_fwd": "lmrl_gym_tpu/ops/flash_attention.py:59",
+        "flash_bwd_dq": "lmrl_gym_tpu/ops/flash_attention.py:182",
+        "flash_bwd_dkv": "lmrl_gym_tpu/ops/flash_attention.py:229",
         "decode_attn": "lmrl_gym_tpu/ops/decode_attention.py:83",
     }
+    source = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd", "decode_attn": "decode_attn"}
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": f"lmrl_gym_torch/csrc/{name}.cu",
+            "source": f"lmrl_gym_torch/csrc/{source[name]}.cu",
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": errs[name],
@@ -467,8 +836,13 @@ def main() -> int:
             "bound_by": shapes[name]["bound_by"],
             "library_ms": shapes[name]["library_ms"],
         }
-        for name in ("flash_fwd", "decode_attn")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attn")
     ]
+    # flash_fwd runs on both paths: its serving row above, its train step here
+    train_fwd = shapes["flash_fwd_train_step"]
+    kernels[0].update(launches_train_step=launches["flash_fwd_train_step"], ms_train_step=train_fwd["ms"],
+                      plain_ms_train_step=train_fwd["plain_ms"], bound_ms_train_step=train_fwd["bound_ms"],
+                      bound_by_train_step=train_fwd["bound_by"], library_ms_train_step=train_fwd["library_ms"])
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

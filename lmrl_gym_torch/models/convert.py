@@ -8,10 +8,13 @@ imports JAX. The output is a state dict for `load_state_dict`:
   `nn.Linear.weight` [out, in];
 - `wte/embedding` keeps its padded vocab rows [V_pad, D];
 - norm `scale` becomes `weight`.
+
+The same maps carry gradient trees (same structure as the params), so a
+test can hold the port's gradients to `jax.grad`'s by name.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -64,3 +67,34 @@ def head_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         if name in tree:
             _dense(sd, name, tree[name])
     return sd
+
+
+def ilql_state_from_jax(
+    state,
+    config: TransformerConfig,
+    base: Mapping,
+    target_base: Optional[Mapping],
+    q1: Mapping,
+    q2: Mapping,
+    v: Mapping,
+    q1_target: Mapping,
+    q2_target: Mapping,
+):
+    """Load the parameter trees of a JAX `ILQLTrainState` (as numpy) into a
+    port `ILQLTrainState` built with the same shapes, in place, and return
+    it. Optimizer states and step counts are left as they are, so both
+    packages start from one state when both are fresh."""
+    state.base.params.load_state_dict(params_from_jax(base, config))
+    if (target_base is None) != (state.target_base_params is None):
+        raise ValueError("the JAX and the port state disagree on use_separate_target_base")
+    if target_base is not None:
+        state.target_base_params.load_state_dict(params_from_jax(target_base, config))
+    for module, tree in (
+        (state.q1_head.params, q1),
+        (state.q2_head.params, q2),
+        (state.v_head.params, v),
+        (state.q1_target_params, q1_target),
+        (state.q2_target_params, q2_target),
+    ):
+        module.load_state_dict(head_params_from_jax(tree))
+    return state

@@ -3,7 +3,8 @@
 
 - LinearHead: one dense layer with a configurable bias init;
 - MLPHead: dense1 → gelu (flax's default tanh approximation, whatever the
-  config string says) or relu → dense2, with the zero-init last layer
+  config string says) or relu → dropout (training only) → dense2, with the
+  zero-init last layer
   (`layer2_initializer_range=0.0`) and `layer2_bias_init` of the ILQL Q/V
   heads.
 
@@ -21,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lmrl_gym_torch.core.device import DeviceLike, resolve_device, torch_dtype
-from lmrl_gym_torch.models.transformer import dense
+from lmrl_gym_torch.models.transformer import dense, dropout
 
 
 @dataclass(frozen=True)
@@ -55,7 +56,11 @@ class LinearHead(nn.Module):
             if self.dense.bias is not None:
                 nn.init.constant_(self.dense.bias, config.bias_init)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`deterministic` and `generator` have no effect: a linear head has
+        no dropout. They give it MLPHead's signature, so a caller (such as
+        `ilql_forward`) can call either head the same way, as the flax
+        LinearHead's ignored `deterministic` does."""
         return dense(self.dense, x, torch_dtype(self.config.dtype))
 
 
@@ -102,11 +107,18 @@ class MLPHead(nn.Module):
                 nn.init.zeros_(self.dense1.bias)
                 nn.init.constant_(self.dense2.bias, cfg.layer2_bias_init or 0.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Inference forward (dropout, a training concern, is not applied)."""
+    def forward(
+        self, x: torch.Tensor, deterministic: bool = True, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        """Dropout after the activation applies only in training
+        (`deterministic=False`), with masks from `generator`."""
         cfg = self.config
         dtype = torch_dtype(cfg.dtype)
         h = dense(self.dense1, x, dtype)
         # flax nn.gelu defaults to approximate=True: the tanh form
         h = F.gelu(h, approximate="tanh") if cfg.activation == "gelu" else F.relu(h)
+        if cfg.dropout > 0 and not deterministic:
+            if generator is None:
+                raise ValueError("MLPHead dropout in training draws its mask from `generator`; pass one")
+            h = dropout(h, cfg.dropout, generator)
         return dense(self.dense2, h, dtype)

@@ -10,6 +10,7 @@ In the port a model's parameters live in its `Transformer` module, so the
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -67,16 +68,20 @@ class LMCore:
         position_ids: Optional[torch.Tensor] = None,
         pad_token_id: Optional[int] = None,
         train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """→ (logits [B,T,V_padded], final hidden [B,T,D])."""
-        if train:
-            raise NotImplementedError("training forwards (dropout, gradients) arrive with the training slice")
+        """→ (logits [B,T,V_padded], final hidden [B,T,D]).
+
+        `train=True` runs with dropout (masks from `generator`) and under
+        the caller's grad mode, so a loss can be differentiated through it;
+        `train=False` is an inference forward under `torch.no_grad()`."""
         attention_mask, position_ids = initialize_attn_mask_pos_ids(
             input_ids, pad_token_id, attention_mask, position_ids
         )
-        with torch.no_grad():
+        with contextlib.nullcontext() if train else torch.no_grad():
             logits, hidden, _ = params(
-                input_ids, attention_mask=attention_mask, position_ids=position_ids
+                input_ids, attention_mask=attention_mask, position_ids=position_ids,
+                deterministic=not train, generator=generator,
             )
         return logits, hidden
 

@@ -27,12 +27,20 @@ each kernel's plain PyTorch version):
 The JAX package's cached einsum path attends over the whole T_max buffer;
 the slots past the fill contribute exact zeros there, so both compute the
 same function on every row that has a visible key.
+
+Training (`deterministic=False`) applies embedding and residual dropout
+with masks drawn from a `torch.Generator` the caller passes, as the flax
+module does with its dropout rng; with grad mode on, the no-cache
+attention goes through `flash_attention`'s autograd function (K1 forward,
+K2 + K3 backward). Attention-probability dropout (`attn_pdrop > 0`) took
+the einsum path in the JAX package, never a kernel; the port refuses it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,6 +91,14 @@ class KVCache:
 
     def advanced(self, n: int) -> "KVCache":
         return KVCache(self.k, self.v, self.index + n)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax `nn.Dropout(rate, deterministic=False)`: keep each element with
+    probability 1 − rate (uniform draw < 1 − rate) and scale it by
+    1/(1 − rate)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -145,6 +161,7 @@ class Attention(nn.Module):
         bias: Optional[torch.Tensor],  # [B, T_kv] additive f32, None = all visible
         position_ids: torch.Tensor,  # [B, T]
         layer_cache: Optional[Tuple[torch.Tensor, torch.Tensor, int]],  # (k, v, index)
+        drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,  # residual dropout
     ) -> torch.Tensor:
         cfg = self.config
         B, T, D = x.shape
@@ -178,8 +195,8 @@ class Attention(nn.Module):
                     bias[:, :S] if bias is not None else None,
                     causal=True, sm_scale=sm_scale,
                 )
-        out = out.transpose(1, 2).reshape(B, T, D)
-        return dense(self.out, out, dtype)
+        out = dense(self.out, out.transpose(1, 2).reshape(B, T, D), dtype)
+        return drop(out) if drop is not None else out
 
 
 class MLP(nn.Module):
@@ -194,7 +211,7 @@ class MLP(nn.Module):
             self.gate = nn.Linear(D, M, bias=config.mlp_bias, device=device, dtype=dtype)
         self.proj = nn.Linear(M, D, bias=config.mlp_bias, device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
         cfg = self.config
         dtype = torch_dtype(cfg.dtype)
         h = dense(self.fc, x, dtype)
@@ -210,7 +227,8 @@ class MLP(nn.Module):
             raise ValueError(cfg.activation)
         if cfg.gated_mlp:
             h = h * dense(self.gate, x, dtype)
-        return dense(self.proj, h, dtype)
+        h = dense(self.proj, h, dtype)
+        return drop(h) if drop is not None else h
 
 
 class LayerNorm(nn.Module):
@@ -260,14 +278,14 @@ class Block(nn.Module):
             self.ln_2 = _norm(config, device, dtype)
         self.mlp = MLP(config, device, dtype)
 
-    def forward(self, x, bias, position_ids, layer_cache):
+    def forward(self, x, bias, position_ids, layer_cache, drop=None):
         h = self.ln_1(x)
-        attn_out = self.attn(h, bias, position_ids, layer_cache)
+        attn_out = self.attn(h, bias, position_ids, layer_cache, drop)
         if self.config.parallel_ffn:
             # GPT-J: mlp reads the same normed input; one residual add
-            return x + attn_out + self.mlp(h)
+            return x + attn_out + self.mlp(h, drop)
         x = x + attn_out
-        return x + self.mlp(self.ln_2(x))
+        return x + self.mlp(self.ln_2(x), drop)
 
 
 class Transformer(nn.Module):
@@ -315,10 +333,17 @@ class Transformer(nn.Module):
         position_ids: Optional[torch.Tensor] = None,  # [B, T]
         cache: Optional[KVCache] = None,
         deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,  # dropout masks when training
     ):
         cfg = self.config
-        if not deterministic and max(cfg.embd_pdrop, cfg.resid_pdrop, cfg.attn_pdrop) > 0:
-            raise NotImplementedError("dropout is a training concern; the port serves only (deterministic=True)")
+        train_drop = not deterministic and max(cfg.embd_pdrop, cfg.resid_pdrop) > 0
+        if not deterministic and cfg.attn_pdrop > 0:
+            raise NotImplementedError(
+                "attention-probability dropout (attn_pdrop > 0) in training is not ported: the JAX package "
+                "runs it on its einsum path, never a kernel; set attn_pdrop=0"
+            )
+        if train_drop and generator is None:
+            raise ValueError("dropout in training (deterministic=False) draws its masks from `generator`; pass one")
         B, T = input_ids.shape
         dtype = torch_dtype(cfg.dtype)
         start = cache.index if cache is not None else 0
@@ -332,10 +357,16 @@ class Transformer(nn.Module):
         x = F.embedding(input_ids, self.wte.weight).to(dtype)
         if cfg.position_embedding == "learned":
             x = x + F.embedding(position_ids, self.wpe.weight).to(dtype)
+        drop = None
+        if train_drop:
+            if cfg.embd_pdrop > 0:
+                x = dropout(x, cfg.embd_pdrop, generator)
+            if cfg.resid_pdrop > 0:
+                drop = functools.partial(dropout, rate=cfg.resid_pdrop, generator=generator)
 
         for i, block in enumerate(self.h):
             layer_cache = (cache.k[i], cache.v[i], start) if cache is not None else None
-            x = block(x, bias, position_ids, layer_cache)
+            x = block(x, bias, position_ids, layer_cache, drop)
         x = self.ln_f(x)
 
         if cfg.tie_word_embeddings:

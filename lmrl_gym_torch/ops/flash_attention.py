@@ -1,23 +1,29 @@
-"""Causal flash-attention forward: CUDA kernel `csrc/flash_fwd.cu` and its
-plain PyTorch version.
+"""Causal flash attention: the forward kernel `csrc/flash_fwd.cu`, the two
+backward kernels `csrc/flash_bwd.cu`, their plain PyTorch versions, and the
+`torch.autograd.Function` that joins them.
 
-Replaces the Pallas kernel `lmrl_gym_tpu/ops/flash_attention.py::
-_flash_kernel` (K1) behind `_flash_forward`. The function: O =
+Replaces the Pallas kernels of `lmrl_gym_tpu/ops/flash_attention.py`:
+`_flash_kernel` (K1, behind `_flash_forward`), `_flash_bwd_dq_kernel` (K2)
+and `_flash_bwd_dkv_kernel` (K3, both behind `_flash_backward`), and the
+`_flash_mha` custom_vjp that joins them. The function: O =
 softmax(scale·QKᵀ + bias, causal with queries right-aligned at offset =
-S − Tq)·V, fp32 online softmax, plus the per-row logsumexp that the
-backward kernels (K2, K3; training slice) will need.
+S − Tq)·V, fp32 online softmax, plus the per-row logsumexp that the backward
+kernels use to rebuild P = exp(s − lse); dQ, dK, dV by the recompute
+formulas, Δ = rowsum(dO ⊙ O) computed here (outside the kernels, as the JAX
+package does), the bias (a padding mask) without a gradient.
 
-On an H100 this kernel is bound by device-memory bytes at the serving
+On an H100 the forward is bound by device-memory bytes at the serving
 path's shapes (Tq ≤ 10 queries over ≤ 128 cached keys, Dh = 64: about 10
-FLOP per byte read), and by FLOPs only for long no-cache forwards. The
-first design streams K/V tiles through shared memory in fp32 on the CUDA
-cores; see the kernel source for what it leaves on the table.
+FLOP per byte read), and so are the backward kernels at the training shapes
+(T = 160, Dh = 64: about 50 FLOP per byte). The first designs stream tiles
+through shared memory in fp32 on the CUDA cores; see the kernel sources for
+what they leave on the table.
 
-Unlike the JAX package (which used the kernel only for T ≥ 1024 on a TPU),
-the port runs it for every attention with more than one query on CUDA:
+Unlike the JAX package (which used the kernels only for T ≥ 1024 on a TPU),
+the port runs them for every attention with more than one query on CUDA:
 no-cache forwards (offset 0), cached prefills and appends over the filled
-cache prefix (offset = index). No gradient yet: the kernel refuses inputs
-that require one.
+cache prefix (offset = index), and, when q, k or v requires a gradient, the
+backward of every trained forward.
 """
 from __future__ import annotations
 
@@ -34,25 +40,68 @@ _NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
+
+
+def _plain_scores(q, k, bias, causal: bool, sm_scale: float):
+    """s = scale·QKᵀ + bias [B,H,Tq,S] f32, _NEG_BIG where a key lies past
+    its query (queries sit at the END of the kv sequence: decode layout)."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if bias is not None:
+        scores = scores + bias[:, None, None, :].float()
+    if causal:
+        Tq, Tk = q.shape[2], k.shape[2]
+        q_pos = torch.arange(Tq, device=q.device) + (Tk - Tq)
+        causal_mask = q_pos[:, None] >= torch.arange(Tk, device=q.device)[None, :]
+        scores = torch.where(causal_mask[None, None], scores, _NEG_BIG)
+    return scores
 
 
 def _plain_attention(q, k, v, bias, causal: bool, sm_scale: float):
     """Plain version, the same math as the JAX package's `_xla_attention`:
     q [B,H,Tq,Dh], k/v [B,H,S,Dh], bias [B,S] additive → (out in q's dtype,
     lse [B,H,Tq] f32)."""
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
-    if bias is not None:
-        scores = scores + bias[:, None, None, :].float()
-    if causal:
-        Tq, Tk = q.shape[2], k.shape[2]
-        # queries sit at the END of the kv sequence (decode layout)
-        q_pos = torch.arange(Tq, device=q.device) + (Tk - Tq)
-        causal_mask = q_pos[:, None] >= torch.arange(Tk, device=q.device)[None, :]
-        scores = torch.where(causal_mask[None, None], scores, _NEG_BIG)
+    scores = _plain_scores(q, k, bias, causal, sm_scale)
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
     return out.to(q.dtype), lse
+
+
+def _plain_dscores(q, k, v, bias, lse, delta, dout, causal: bool, sm_scale: float):
+    """(P = exp(s − lse), dS = P ⊙ (dO·Vᵀ − Δ)), both [B,H,Tq,S] f32."""
+    p = torch.exp(_plain_scores(q, k, bias, causal, sm_scale) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def _plain_bwd_dq(q, k, v, bias, lse, delta, dout, causal: bool, sm_scale: float):
+    """Plain version of K2: dQ = scale·dS·K, in q's dtype."""
+    _, ds = _plain_dscores(q, k, v, bias, lse, delta, dout, causal, sm_scale)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * sm_scale).to(q.dtype)
+
+
+def _plain_bwd_dkv(q, k, v, bias, lse, delta, dout, causal: bool, sm_scale: float):
+    """Plain version of K3: dK = scale·dSᵀ·Q and dV = Pᵀ·dO, in k's/v's dtype."""
+    p, ds = _plain_dscores(q, k, v, bias, lse, delta, dout, causal, sm_scale)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out, dout):
+    """Δ = rowsum(dO ⊙ O) [B,H,Tq] f32 (the JAX package computes it in XLA,
+    outside its kernels)."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+def _plain_flash_backward(q, k, v, bias, out, lse, dout, causal: bool, sm_scale: float):
+    """Plain backward, the recompute math of the JAX package's
+    `_flash_backward` → (dq, dk, dv); the bias gets no gradient."""
+    delta = _delta(out, dout)
+    dq = _plain_bwd_dq(q, k, v, bias, lse, delta, dout, causal, sm_scale)
+    dk, dv = _plain_bwd_dkv(q, k, v, bias, lse, delta, dout, causal, sm_scale)
+    return dq, dk, dv
 
 
 def _load():
@@ -67,6 +116,19 @@ def _load():
         )
         _lib = lib
     return _lib
+
+
+def _load_bwd():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("flash_bwd")
+        tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.flash_bwd_dq.restype = ctypes.c_int
+        lib.flash_bwd_dq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15 + tail
+        lib.flash_bwd_dkv.restype = ctypes.c_int
+        lib.flash_bwd_dkv.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 18 + tail
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _check_cuda_inputs(q, k, v, bias):
@@ -88,8 +150,6 @@ def _check_cuda_inputs(q, k, v, bias):
     if bias is not None:
         if bias.dtype != torch.float32 or bias.shape != (B, S) or bias.stride(1) != 1 or bias.device != q.device:
             raise ValueError(f"flash_fwd: bias must be float32 [B, S] = [{B}, {S}] on {q.device} with a contiguous last dim")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError("flash_fwd has no backward yet; call it under torch.no_grad()")
 
 
 def flash_fwd(
@@ -105,7 +165,8 @@ def flash_fwd(
     CPU tensors take the plain version. CUDA tensors launch the kernel:
     q/k/v may be strided views (batch/head/row strides, contiguous last
     dim); `out` is a [B,H,Tq,Dh] view of a [B,Tq,H,Dh] buffer, so merging
-    the heads back is free."""
+    the heads back is free. No autograd here: `flash_attention` carries the
+    gradient."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if not q.is_cuda:
@@ -137,6 +198,107 @@ def flash_fwd(
 flash_fwd.launches = 0
 
 
+def _strides(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _grad_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty [B,H,T,Dh] view of a [B,T,H,Dh] buffer: autograd merges the
+    heads of such a gradient back into the fused qkv projection's gradient
+    without a copy."""
+    B, H, T, Dh = t.shape
+    return torch.empty((B, T, H, Dh), dtype=t.dtype, device=t.device).permute(0, 2, 1, 3)
+
+
+def _check_cuda_grad_inputs(q, k, v, bias, dout, lse, delta):
+    _check_cuda_inputs(q, k, v, bias)
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device or dout.stride(3) != 1:
+        raise ValueError(f"flash backward: dout must be {q.dtype} {tuple(q.shape)} on {q.device} with a contiguous last dim")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != q.shape[:3] or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash backward: {name} must be contiguous float32 {tuple(q.shape[:3])} on {q.device}")
+
+
+def flash_bwd_dq(q, k, v, bias, lse, delta, dout, causal: bool = True, sm_scale: Optional[float] = None) -> torch.Tensor:
+    """K2: dQ [B,H,Tq,Dh] in q's dtype from the forward's lse and Δ =
+    rowsum(dO ⊙ O). CPU tensors take the plain version; CUDA tensors
+    launch the kernel (strided inputs as `flash_fwd` takes them)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if not q.is_cuda:
+        return _plain_bwd_dq(q, k, v, bias, lse, delta, dout, causal, sm_scale)
+    _check_cuda_grad_inputs(q, k, v, bias, dout, lse, delta)
+    B, H, Tq, Dh = q.shape
+    S = k.shape[2]
+    dq = _grad_like(q)
+    rc = _load_bwd().flash_bwd_dq(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        B, H, Tq, S, Dh, *_strides(q), *_strides(k), *_strides(v), *_strides(dout), *_strides(dq),
+        bias.stride(0) if bias is not None else 0, S - Tq, float(sm_scale), int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq: kernel launch failed with CUDA error {rc}")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(
+    q, k, v, bias, lse, delta, dout, causal: bool = True, sm_scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: (dK, dV) [B,H,S,Dh] in k's and v's dtype. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if not q.is_cuda:
+        return _plain_bwd_dkv(q, k, v, bias, lse, delta, dout, causal, sm_scale)
+    _check_cuda_grad_inputs(q, k, v, bias, dout, lse, delta)
+    B, H, Tq, Dh = q.shape
+    S = k.shape[2]
+    dk, dv = _grad_like(k), _grad_like(v)
+    rc = _load_bwd().flash_bwd_dkv(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, Tq, S, Dh,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(dout), *_strides(dk), *_strides(dv),
+        bias.stride(0) if bias is not None else 0, S - Tq, float(sm_scale), int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv: kernel launch failed with CUDA error {rc}")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+class _FlashAttnFunction(torch.autograd.Function):
+    """K1 forward, K2 + K3 backward: the port of the `_flash_mha`
+    custom_vjp. CPU tensors take the plain versions of all three."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal: bool, sm_scale: float):
+        out, lse = flash_fwd(q, k, v, bias, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        delta = _delta(out, dout)
+        dq = flash_bwd_dq(q, k, v, bias, lse, delta, dout, ctx.causal, ctx.sm_scale)
+        dk, dv = flash_bwd_dkv(q, k, v, bias, lse, delta, dout, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -146,5 +308,11 @@ def flash_attention(
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Fused attention; output [B, H, Tq, Dh] in q.dtype. Queries are
-    right-aligned against the kv sequence when Tq < S (decode layout)."""
+    right-aligned against the kv sequence when Tq < S (decode layout).
+    With grad mode on and q, k or v requiring a gradient, the call goes
+    through `_FlashAttnFunction` (K1 forward, K2 + K3 backward)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttnFunction.apply(q, k, v, bias, causal, sm_scale)
     return flash_fwd(q, k, v, bias, causal, sm_scale)[0]

@@ -64,6 +64,9 @@ def test_no_forbidden_imports(path):
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
+    from lmrl_gym_torch.algos.bc import BCConfig, make_bc_train_step
+    from lmrl_gym_torch.algos.ilql import ILQLConfig, init_ilql_state, make_ilql_train_step
+    from lmrl_gym_torch.core.optimizer import adam
     from lmrl_gym_torch.envs.wordle.vector import WordleVectorEnv, WordleVocab
     from lmrl_gym_torch.models.config import tiny_test_config
     from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
@@ -79,6 +82,10 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         lambda: MLPHead(MLPHeadConfig(64, 128, 320)),
         lambda: WordleVectorEnv(WordleVocab.from_file()),
         lambda: Transformer(cfg, device="cuda"),
+        lambda: make_ilql_train_step(LMCore(cfg), ILQLConfig(), 256),
+        lambda: make_bc_train_step(LMCore(cfg), BCConfig(), 256),
+        lambda: init_ilql_state(Transformer(cfg), *(MLPHead(MLPHeadConfig(64, 128, n)) for n in (320, 320, 1)),
+                                adam(1e-4), adam(1e-3), ILQLConfig()),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

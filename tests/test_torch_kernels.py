@@ -102,6 +102,98 @@ def test_decode_kernel_matches_plain(cuda, dtype, index, with_bias, Dh):
     assert excess(out, ref, dtype).max().item() <= TOL[dtype][0]
 
 
+def _bwd_case(B, H, Tq, S, Dh, dtype, padded, seed):
+    """Inputs of one backward: q/k/v as views into a fused [B, T, 3, H, Dh]
+    projection (as the trunk passes them), the forward's out and lse, and a
+    cotangent that is zero on fully masked (left-pad) query rows, as every
+    loss of the port gives them."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, S, 3, H, Dh, generator=g).to("cuda", dtype)
+    q = qkv[:, S - Tq:, 0].transpose(1, 2)
+    k, v = qkv[:, :, 1].transpose(1, 2), qkv[:, :, 2].transpose(1, 2)
+    bias = None
+    rows = torch.ones(B, Tq, dtype=torch.bool, device="cuda")
+    if padded:
+        n_pad = torch.tensor([0, 1, S // 2, S - 1][:B])
+        bias = torch.where(torch.arange(S)[None, :] >= n_pad[:, None], 0.0, NEG_BIG).float().cuda()
+        rows = bias[:, S - Tq:] == 0
+    out, lse = tfa.flash_fwd(q, k, v, bias)
+    dout = torch.randn(B, Tq, H, Dh, generator=g).to("cuda", dtype).transpose(1, 2)
+    dout = dout * rows[:, None, :, None].to(dtype)
+    return q, k, v, bias, out, lse, dout
+
+
+GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 2.0**-6)}  # (atol, rtol)
+
+
+def _grad_excess(out, ref, dtype):
+    return (out.float() - ref.float()).abs() - GRAD_TOL[dtype][1] * ref.float().abs()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("T", [1, 17, 160, 200])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, padded, T, Dh):
+    """K2 and K3 against their plain versions on the same inputs (Δ too)."""
+    B, H = 4, 3
+    q, k, v, bias, out, lse, dout = _bwd_case(B, H, T, T, Dh, dtype, padded, seed=T + Dh)
+    delta = tfa._delta(out, dout)
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    dq = tfa.flash_bwd_dq(q, k, v, bias, lse, delta, dout)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, bias, lse, delta, dout)
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    scale = 1.0 / Dh**0.5
+    ref_dq = tfa._plain_bwd_dq(q, k, v, bias, lse, delta, dout, True, scale)
+    ref_dk, ref_dv = tfa._plain_bwd_dkv(q, k, v, bias, lse, delta, dout, True, scale)
+    torch.cuda.synchronize()
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert _grad_excess(got, ref, dtype).max().item() <= GRAD_TOL[dtype][0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,S,padded", [(10, 128, False), (128, 256, True), (1, 40, True), (33, 34, False)])
+def test_flash_bwd_kernels_right_aligned_queries(cuda, dtype, Tq, S, padded):
+    """Tq < S: queries right-aligned at offset S − Tq, as the forward."""
+    q, k, v, bias, out, lse, dout = _bwd_case(4, 2, Tq, S, 64, dtype, padded, seed=Tq)
+    got = tfa._FlashAttnFunction.backward(_Ctx(q, k, v, bias, out, lse), dout)[:3]
+    ref = tfa._plain_flash_backward(q, k, v, bias, out, lse, dout, True, 0.125)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _grad_excess(a, b, dtype).max().item() <= GRAD_TOL[dtype][0]
+
+
+class _Ctx:
+    """Stands in for autograd's ctx to call the backward directly."""
+
+    def __init__(self, q, k, v, bias, out, lse):
+        self.saved_tensors = (q, k, v, bias, out, lse)
+        self.causal, self.sm_scale = True, 1.0 / q.shape[-1] ** 0.5
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_flash_attention_gradients_on_card(cuda, padded):
+    """The autograd function (K1 + K2 + K3) against autograd through the
+    plain attention, f32, with the trunk's fused-qkv layout."""
+    B, H, T, Dh = 3, 4, 150, 64
+    g = torch.Generator().manual_seed(1)
+    qkv = torch.randn(B, T, 3 * H * Dh, generator=g).cuda().requires_grad_()
+    bias = None
+    if padded:
+        n_pad = torch.tensor([0, 5, 70])
+        bias = torch.where(torch.arange(T)[None, :] >= n_pad[:, None], 0.0, NEG_BIG).float().cuda()
+    cot = torch.randn(B, H, T, Dh, generator=g).cuda()
+    if padded:
+        cot = cot * (bias == 0)[:, None, :, None]
+    grads = []
+    for fn in (lambda q, k, v: tfa.flash_attention(q, k, v, bias),
+               lambda q, k, v: tfa._plain_attention(q, k, v, bias, True, 1.0 / Dh**0.5)[0]):
+        q, k, v = (t.view(B, T, H, Dh).transpose(1, 2) for t in qkv.split(H * Dh, dim=-1))
+        grads.append(torch.autograd.grad((fn(q, k, v) * cot).sum(), qkv)[0])
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-4
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = _randn(1, 2, 1, 24 + 4, dtype=torch.float32, seed=0)  # Dh = 28: not a multiple of 8
     with pytest.raises(ValueError):
@@ -183,3 +275,93 @@ def test_value_guided_rollout_on_card_matches_cpu(cuda):
         outs.append(out)
     for f in ("tokens", "turn_reward", "turn_live", "win", "n_turns"):
         assert torch.equal(getattr(outs[0], f).cpu(), getattr(outs[1], f)), f
+
+
+def _tiny_ilql_state(device):
+    """The same seeded weights on either device (made on the CPU, moved)."""
+    from lmrl_gym_torch.algos.ilql import ILQLConfig, init_ilql_state
+    from lmrl_gym_torch.core.optimizer import adamw
+    from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
+
+    cfg = tiny_test_config()
+    q = MLPHeadConfig(cfg.hidden_size, 2 * cfg.hidden_size, cfg.padded_vocab_size)
+    v = MLPHeadConfig(cfg.hidden_size, 2 * cfg.hidden_size, 1)
+    modules = (Transformer(cfg, device="cpu", seed=0), MLPHead(q, device="cpu", seed=1),
+               MLPHead(q, device="cpu", seed=2), MLPHead(v, device="cpu", seed=3))
+    state = init_ilql_state(*(m.to(device) for m in modules), adamw(1e-4), adamw(1e-3), ILQLConfig(polyak_alpha=0.1))
+    return cfg, state
+
+
+def _ilql_batch(device, B=4, T=40, nt=8):
+    from lmrl_gym_torch.algos.ilql import ILQLBatch
+
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(1, 256, (B, T), generator=g)
+    ids[1, T - 5:] = 256  # right padding
+    sta = torch.rand(B, T - 1, generator=g) < 0.4
+    sta[:, 0] = True
+    batch = ILQLBatch(ids, sta, -1.0 * sta.float(), torch.tensor([True, False, True, False]),
+                      torch.randint(1, 256, (B, nt), generator=g), torch.tensor([True, False, False, True]))
+    return ILQLBatch(*(t.to(device) for t in batch))
+
+
+def test_ilql_step_on_card_matches_cpu(cuda):
+    """A tiny-width ILQL step: the card (K1 + K2 + K3) against the CPU
+    (plain versions), f32. Loss and logs within 1e-5 relative, each
+    parameter group's gradient within 1e-4 in relative norm; then three
+    full steps, parameters elementwise within 2e-6 + 1e-4·|p|, except where
+    the first gradient is rounding noise (below 1e-5 of its tensor's
+    largest: the key part of the qkv bias, whose gradient is zero in exact
+    arithmetic), since Adam scales noise to ±lr steps on either side."""
+    from lmrl_gym_torch.algos.ilql import ILQLConfig, ilql_loss_and_grads, make_ilql_train_step
+    from lmrl_gym_torch.models.interface import LMCore
+
+    runs = []
+    for d in ("cuda", "cpu"):
+        cfg, state = _tiny_ilql_state(d)
+        core, batch = LMCore(cfg, device=d), _ilql_batch(d)
+        counts0 = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+        loss, logs, grads = ilql_loss_and_grads(core, state, batch, ILQLConfig(polyak_alpha=0.1), 256)
+        counts = tuple(c - c0 for c, c0 in zip((tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches), counts0))
+        L = cfg.num_layers
+        assert counts == ((3 * L, L, L) if d == "cuda" else (0, 0, 0))
+        step = make_ilql_train_step(core, ILQLConfig(polyak_alpha=0.1), 256)
+        for _ in range(3):
+            state, _, _ = step(state, batch)
+        runs.append((loss.cpu(), logs["losses"], [{k: g.cpu() for k, g in gr.items()} for gr in grads], state))
+    (l0, logs0, g0, s0), (l1, logs1, g1, s1) = runs
+    assert abs(l0.item() - l1.item()) <= 1e-5 * abs(l1.item())
+    for k in logs1:
+        assert abs(logs0[k].item() - logs1[k].item()) <= 1e-5 * max(abs(logs1[k].item()), 1e-3), k
+    for ga, gb in zip(g0, g1):
+        for k in gb:
+            assert (ga[k] - gb[k]).norm() <= 1e-4 * gb[k].norm() + 1e-8, k
+    for a, b, grads in ((s0.base.params, s1.base.params, g1[0]), (s0.q1_target_params, s1.q1_target_params, g1[1])):
+        for (k, ta), tb in zip(a.state_dict().items(), b.state_dict().values()):
+            noise = grads[k].abs() <= 1e-5 * grads[k].abs().max()
+            apart = (ta.cpu() - tb).abs() > 2e-6 + 1e-4 * tb.abs()
+            assert not (apart & ~noise).any(), k
+
+
+def test_bc_step_on_card_matches_cpu(cuda):
+    from lmrl_gym_torch.algos.bc import BCBatch, BCConfig, BCTrainState, bc_loss_and_grads
+    from lmrl_gym_torch.core.optimizer import TrainState, adamw
+    from lmrl_gym_torch.models.interface import LMCore
+
+    cfg = tiny_test_config()
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(1, 256, (3, 48), generator=g)
+    ids[0, 40:] = 256
+    batch = BCBatch(ids, (torch.rand(3, 48, generator=g) < 0.5).int())
+    cpu = Transformer(cfg, device="cpu", seed=4)
+    out = []
+    for d in ("cuda", "cpu"):
+        model = Transformer(cfg, device=d)
+        model.load_state_dict(cpu.state_dict())
+        state = BCTrainState(TrainState(model, adamw(1e-3)))
+        loss, _, grads = bc_loss_and_grads(LMCore(cfg, device=d), state, BCBatch(*(t.to(d) for t in batch)), BCConfig(), 256)
+        out.append((loss.cpu(), {k: v.cpu() for k, v in grads.items()}))
+    assert abs(out[0][0].item() - out[1][0].item()) <= 1e-5 * abs(out[1][0].item())
+    for k, gb in out[1][1].items():
+        assert (out[0][1][k] - gb).norm() <= 1e-4 * gb.norm() + 1e-8, k
+
