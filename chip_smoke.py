@@ -12,8 +12,10 @@ Phases, each of which exits non-zero on failure:
    serving path's shapes (B=512, H=12, Dh=64) and, for the flash forward
    and backward kernels, the training shapes (B=32, H=12, T=160, Dh=64,
    with a left-padded and a right-aligned Tq < S case; the forward also at
-   the next window's T=16) in bf16 and f32, with the
-   max abs error, its tolerance, and the kernel, plain and library
+   the next window's T=16), a ragged T=100 (and Tq=37 over S=100) and
+   Dh=128 at B=4, H=32, T=160, in bf16 (the backward's tensor-core
+   variant) and f32 (its CUDA-core variant), with the max abs error, its
+   tolerance, and the kernel, plain and library
    (scaled_dot_product_attention, forward or backward, a yardstick the port
    never calls) times;
 3. serving at full width: value-guided Wordle serving with GPT-2-small
@@ -28,9 +30,10 @@ Phases, each of which exits non-zero on failure:
    bf16 activations), twin MLP Q heads (hidden 1536, out 50,304) and a V
    head, a separate target base, AdamW, B=32, T=160, next window 16 — one
    warm-up and ten timed steps, each with its launch counts (36 flash_fwd,
-   12 flash_bwd_dq, 12 flash_bwd_dkv) and a finite loss checked, then one
-   more under torch.profiler; then three BC steps on the same trunk
-   (12/12/12 launches);
+   12 flash_bwd_dq, 12 flash_bwd_dkv, every backward launch the
+   tensor-core variant) and a finite loss checked, then one more under
+   torch.profiler; then three BC steps on the same trunk (12/12/12
+   launches, the same check);
 4. the same full-width serving weights at B=4 on the card (kernels, bf16)
    against the CPU (plain path, f32): header prefill plus 3 decode steps;
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
@@ -41,7 +44,10 @@ Phases, each of which exits non-zero on failure:
    path's shapes beside the bound (bytes or FLOPs at the H100's published
    peaks), the plain version's and the library call's. flash_fwd runs on
    both paths: its main keys are the rollout's, and the `*_train_step`
-   keys the same numbers for one ILQL train step.
+   keys the same numbers for one ILQL train step. flash_bwd_dq and
+   flash_bwd_dkv carry their `variant`, and beside SDPA's backward
+   (`library_ms`, which computes its own rowsum(dO ⊙ O)) the port's Δ pass
+   (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`).
 
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA device the
 script exits 2 and prints no result.
@@ -103,6 +109,7 @@ GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 2.0**-6)}
 # after 12 layers: bf16 keeps ~3 significant digits per op, logits ~ ±3
 LOGIT_TOL = 0.1
 ROLLOUT_REPS = 5  # timed rollouts; the median is reported beside min and max
+SPIN_CYCLES = 10_000_000  # cuda_ms's head start for the host: ~5 ms at the H100's 1.98 GHz boost
 # training: bench.py::bench_ilql_real_vocab's operating point
 TRAIN_B, TRAIN_T, NEXT_T = 32, 160, 16
 TRAIN_REPS = 10
@@ -126,10 +133,15 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call over `reps` back-to-back calls, by CUDA events."""
+    """Mean ms per call over `reps` back-to-back calls, by CUDA events. A
+    spin kernel (~5 ms) runs first, so the host has queued the calls
+    before the device reaches them: a call whose host work outlasts its
+    kernels (a wrapper around a 20 µs kernel) is timed by its kernels."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -230,12 +242,14 @@ def phase_device() -> str:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    reports = _build.build_all(["flash_fwd", "flash_bwd", "decode_attn"])
+    reports = _build.build_all(["flash_fwd", "flash_bwd", "flash_bwd_tc", "decode_attn"])
     log(f"kernel build: {time.perf_counter() - t0:.2f} s for {sorted(reports) or 'nothing (cached)'}")
     for name, report in sorted(reports.items()):
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                log(f"  ptxas {name}: {line.split(chr(39))[1][:110]}")  # the mangled kernel name
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name}:   {line.strip()}")
     return card
 
 
@@ -266,7 +280,7 @@ def _check_fwd(q, k, v, bias, rows, dtype, label: str) -> tuple:
     TOL and lse within 1e-3 on the query rows that see a key (`rows`,
     [b, Tq]; fully padded rows hold garbage in both). Returns (max abs
     error of out, of lse)."""
-    scale = 1.0 / DH**0.5
+    scale = 1.0 / q.shape[-1]**0.5
     out, lse = flash_fwd(q, k, v, bias, True, scale)
     ref, ref_lse = _plain_attention(q, k, v, bias, True, scale)
     torch.cuda.synchronize()
@@ -319,12 +333,12 @@ def phase_kernel_checks() -> dict:
     return errs
 
 
-def _bwd_inputs(Tq, S, dtype, padded, gen, b=TRAIN_B):
+def _bwd_inputs(Tq, S, dtype, padded, gen, b=TRAIN_B, h=H, dh=DH):
     """One backward's inputs as the trunk makes them: q/k/v views into a
-    fused [b, S, 3, H, Dh] projection, the forward's out and lse, a
-    cotangent zero on fully masked (left-pad) query rows, and Δ; and the
-    [b, Tq] mask of query rows that see a key."""
-    qkv = torch.randn(b, S, 3, H, DH, device="cuda", generator=gen).to(dtype)
+    fused [b, S, 3, h, dh] projection, the forward's lse, a cotangent zero
+    on fully masked (left-pad) query rows, and Δ; the [b, Tq] mask of query
+    rows that see a key; and the forward's out."""
+    qkv = torch.randn(b, S, 3, h, dh, device="cuda", generator=gen).to(dtype)
     q = qkv[:, S - Tq:, 0].transpose(1, 2)
     k, v = qkv[:, :, 1].transpose(1, 2), qkv[:, :, 2].transpose(1, 2)
     bias = torch.zeros(b, S, device="cuda")
@@ -333,44 +347,66 @@ def _bwd_inputs(Tq, S, dtype, padded, gen, b=TRAIN_B):
         n_pad = torch.randint(0, S, (b,), device="cuda", generator=gen)
         bias = torch.where(torch.arange(S, device="cuda")[None, :] >= n_pad[:, None], 0.0, _NEG_BIG).float()
         rows = bias[:, S - Tq:] == 0
-    out, lse = flash_fwd(q, k, v, bias, True, 1.0 / DH**0.5)
-    dout = torch.randn(b, Tq, H, DH, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+    out, lse = flash_fwd(q, k, v, bias, True, 1.0 / dh**0.5)
+    dout = torch.randn(b, Tq, h, dh, device="cuda", generator=gen).to(dtype).transpose(1, 2)
     dout = dout * rows[:, None, :, None].to(dtype)
-    return (q, k, v, bias, lse, _delta(out, dout), dout), rows
+    return (q, k, v, bias, lse, _delta(out, dout), dout), rows, out
+
+
+def _tc_counts():
+    return flash_bwd_dq.tc_launches, flash_bwd_dkv.tc_launches
+
+
+# phase 2's backward cases: (b, h, dh, Tq, S, left-padded); the training
+# shapes first, then a ragged T (not a multiple of the 64-row tile) and
+# LLaMA's head width
+BWD_CASES = (
+    (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, False), (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
+    (TRAIN_B, H, DH, 96, TRAIN_T, False), (TRAIN_B, H, DH, 100, 100, True), (TRAIN_B, H, DH, 37, 100, False),
+    (4, 32, 128, 160, 160, True),
+)
 
 
 def phase_bwd_checks() -> dict:
-    """K1, K2 and K3 against their plain versions on the card at the
-    training shapes (B=32, H=12, Dh=64): T=160 with the trunk's all-zero
-    bias, T=160 left-padded, and Tq=96 queries right-aligned over S=160
-    keys; and K1 alone at the next-window forward's T=16, with and without
-    padding. K1 is checked on the inputs the backward kernels then take."""
+    """K1, K2 and K3 against their plain versions on the card (`BWD_CASES`:
+    the training shapes B=32, H=12, Dh=64 with T=160 and the trunk's
+    all-zero bias, T=160 left-padded, and Tq=96 queries right-aligned over
+    S=160 keys; a ragged T=100 and Tq=37 over S=100; Dh=128 at B=4, H=32,
+    T=160), bf16 through the backward's tensor-core variant and f32
+    through its CUDA-core variant; and K1 alone at the next-window
+    forward's T=16, with and without padding. K1 is checked on the inputs
+    the backward kernels then take."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    scale = 1.0 / DH**0.5
     errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         for T, padded in ((NEXT_T, False), (NEXT_T, True)):
-            (q, k, v, bias, *_), rows = _bwd_inputs(T, T, dtype, padded, gen)
+            (q, k, v, bias, *_), rows, _ = _bwd_inputs(T, T, dtype, padded, gen)
             err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"B={TRAIN_B} Tq=S={T} left_pad={padded}")
             errs["flash_fwd"] = max(errs["flash_fwd"], err)
             log(f"check flash_fwd B={TRAIN_B} H={H} Tq={T} S={T} left_pad={padded} {str(dtype)[6:]}: "
                 f"max_abs_err={err:.3e} (atol, rtol {TOL[dtype]}) lse_err={lse_err:.3e}")
-        for Tq, S, padded in ((TRAIN_T, TRAIN_T, False), (TRAIN_T, TRAIN_T, True), (96, TRAIN_T, False)):
-            args, rows = _bwd_inputs(Tq, S, dtype, padded, gen)
+        for b, h, dh, Tq, S, padded in BWD_CASES:
+            scale = 1.0 / dh**0.5
+            args, rows, _ = _bwd_inputs(Tq, S, dtype, padded, gen, b, h, dh)
             q, k, v, bias, lse, delta, dout = args
-            fwd_err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"B={TRAIN_B} Tq={Tq} S={S} left_pad={padded}")
+            shape = f"B={b} H={h} Dh={dh} Tq={Tq} S={S}"
+            fwd_err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"{shape} left_pad={padded}")
             errs["flash_fwd"] = max(errs["flash_fwd"], fwd_err)
+            tc0 = _tc_counts()
             dq = flash_bwd_dq(*args, True, scale)
             dk, dv = flash_bwd_dkv(*args, True, scale)
+            n_tc = tuple(n - n0 for n, n0 in zip(_tc_counts(), tc0))
+            want_tc = (1, 1) if dtype == torch.bfloat16 else (0, 0)
+            check(n_tc == want_tc, f"flash_bwd {shape} {dtype}: tensor-core launches {n_tc}, want {want_tc}")
             ref_dq = _plain_bwd_dq(*args, True, scale)
             ref_dk, ref_dv = _plain_bwd_dkv(*args, True, scale)
             torch.cuda.synchronize()
-            line = [f"flash_fwd_max_abs_err={fwd_err:.3e} lse_err={lse_err:.3e}"]
+            line = [f"variant={'tc' if n_tc[0] else 'simt'} flash_fwd_max_abs_err={fwd_err:.3e} lse_err={lse_err:.3e}"]
             for name, pairs in (("flash_bwd_dq", ((dq, ref_dq),)), ("flash_bwd_dkv", ((dk, ref_dk), (dv, ref_dv)))):
                 err = max((a.float() - r.float()).abs().max().item() for a, r in pairs)
                 over = max(((a.float() - r.float()).abs() - GRAD_TOL[dtype][1] * r.float().abs()).max().item()
                            for a, r in pairs)
-                check(over <= GRAD_TOL[dtype][0], f"{name} Tq={Tq} S={S} bias={padded} {dtype}: max abs err {err} "
+                check(over <= GRAD_TOL[dtype][0], f"{name} {shape} bias={padded} {dtype}: max abs err {err} "
                                                   f"over tolerance {GRAD_TOL[dtype]}")
                 errs[name] = max(errs[name], err)
                 line.append(f"{name}_max_abs_err={err:.3e}")
@@ -379,7 +415,7 @@ def phase_bwd_checks() -> dict:
             t_pdq = cuda_ms(lambda: _plain_bwd_dq(*args, True, scale))
             t_pdkv = cuda_ms(lambda: _plain_bwd_dkv(*args, True, scale))
             t_lib = sdpa_bwd_ms(q, k, v, bias, dout, scale, causal_only=not padded and Tq == S)
-            log(f"check flash_bwd B={TRAIN_B} H={H} Tq={Tq} S={S} offset={S - Tq} left_pad={padded} {str(dtype)[6:]}: "
+            log(f"check flash_bwd {shape} offset={S - Tq} left_pad={padded} {str(dtype)[6:]}: "
                 + " ".join(line) + f" (atol, rtol fwd {TOL[dtype]}, bwd {GRAD_TOL[dtype]}) dq_ms={t_dq:.4f} dkv_ms={t_dkv:.4f} "
                 f"plain_dq_ms={t_pdq:.4f} plain_dkv_ms={t_pdkv:.4f} library_bwd_ms={t_lib:.4f}")
     return errs
@@ -387,28 +423,33 @@ def phase_bwd_checks() -> dict:
 
 def phase_train_shapes() -> dict:
     """Per-launch times at the shapes one ILQL train step launches, bf16
-    with the trunk's all-zero bias: K2 and K3 at T=160 (12 each per step;
-    the library yardstick is SDPA's backward, one device time for the
-    pair); K1 at
+    with the trunk's all-zero bias: K2 and K3 at T=160 (12 each per step,
+    the tensor-core variant; the library yardstick is SDPA's backward, one
+    device time for the pair, which computes its own rowsum(dO ⊙ O), so
+    the port's Δ pass and the pair plus Δ stand beside it); K1 at
     T=160 (24 per step: trained and target trunk) and T=16 (12: the
     next-window forward), logged per shape and returned as the mean over
     the step's 36 launches under "flash_fwd_train_step"."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     scale = 1.0 / DH**0.5
     dtype = torch.bfloat16
-    args, _ = _bwd_inputs(TRAIN_T, TRAIN_T, dtype, False, gen)
+    args, _, fwd_out = _bwd_inputs(TRAIN_T, TRAIN_T, dtype, False, gen)
     q, k, v, bias, lse, delta, dout = args
     lib = sdpa_bwd_ms(q, k, v, bias, dout, scale, causal_only=True)
+    t_delta = cuda_ms(lambda: _delta(fwd_out, dout))
     out = {}
     for name, fn, plain, kind in (("flash_bwd_dq", flash_bwd_dq, _plain_bwd_dq, "dq"),
                                   ("flash_bwd_dkv", flash_bwd_dkv, _plain_bwd_dkv, "dkv")):
         t_b, by = bound_ms(*bwd_work(TRAIN_B, TRAIN_T, TRAIN_T, dtype, kind, True), dtype)
         out[name] = dict(ms=cuda_ms(lambda: fn(*args, True, scale)), plain_ms=cuda_ms(lambda: plain(*args, True, scale)),
-                         library_ms=lib, bound_ms=t_b, bound_by=by)
+                         library_ms=lib, bound_ms=t_b, bound_by=by, delta_ms=t_delta)
+    pair = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"] + t_delta
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        out[name]["pair_plus_delta_ms"] = pair
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, n_bytes=0.0, flops=0.0)
     for T, per_step in ((TRAIN_T, 2), (NEXT_T, 1)):  # launches per layer and step at this shape
-        (fq, fk, fv, fbias, *_), _ = _bwd_inputs(T, T, dtype, False, gen)
+        (fq, fk, fv, fbias, *_), _, _ = _bwd_inputs(T, T, dtype, False, gen)
         row = dict(ms=cuda_ms(lambda: flash_fwd(fq, fk, fv, fbias, True, scale)),
                    plain_ms=cuda_ms(lambda: _plain_attention(fq, fk, fv, fbias, True, scale)),
                    library_ms=device_ms(lambda: sdpa(fq, fk, fv, is_causal=True, scale=scale)))
@@ -483,8 +524,8 @@ def phase_main_path_shapes() -> dict:
 def _reset_counts():
     flash_fwd.launches = 0
     decode_attention.launches = 0
-    flash_bwd_dq.launches = 0
-    flash_bwd_dkv.launches = 0
+    flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
+    flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
 
 
 def _counts():
@@ -522,6 +563,8 @@ def _kernel_category(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attn"):
         if f"{kernel}_kernel" in name:
             return kernel
+        if f"{kernel}_tc_kernel" in name:
+            return f"{kernel} (tensor cores)"
     low = name.lower()
     if "multi_tensor_apply" in low:
         return "optimizer (foreach)"
@@ -728,7 +771,8 @@ def phase_train(config) -> dict:
         times.append(time.perf_counter() - t0)
         counts = _train_counts()
         check(counts == want, f"ILQL step launched flash_fwd/bwd_dq/bwd_dkv {counts}, want {want}")
-        step_counts = counts
+        check(_tc_counts() == (L, L), f"ILQL step: tensor-core backward launches {_tc_counts()}, want {(L, L)}")
+        step_counts = counts + _tc_counts()
         losses.append(loss)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t_all
@@ -739,7 +783,8 @@ def phase_train(config) -> dict:
     log(f"ILQL train: {TRAIN_REPS} steps in {dt:.4f} s: updates_per_s={ups:.3f} tokens_per_s={ups * TRAIN_B * TRAIN_T:.1f} "
         f"mfu={flops * ups / PEAK_FLOPS[torch.bfloat16]:.4f} (bench.py's count {flops / 1e12:.3f} TFLOP per update "
         f"over 989 TF/s) peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
-        f"host_ms_per_step_call={1e3 * sum(times) / len(times):.1f}; launches per step {want}; "
+        f"host_ms_per_step_call={1e3 * sum(times) / len(times):.1f}; launches per step {want}, "
+        f"tensor-core backward {step_counts[3:]}; "
         f"losses {[round(x, 4) for x in losses.tolist()]}; last logs q1_loss={logs['losses']['q1_loss'].item():.4f} "
         f"v_loss={logs['losses']['v_loss'].item():.4f} q1_cql={logs['losses']['q1_cql_loss'].item():.4f}")
     profile_run("train step", lambda: step(state, batch), dt / TRAIN_REPS)
@@ -756,10 +801,12 @@ def phase_train(config) -> dict:
         torch.cuda.synchronize()
         counts = _train_counts()
         check(counts == (L, L, L), f"BC step launched {counts}, want {(L, L, L)}")
+        check(_tc_counts() == (L, L), f"BC step: tensor-core backward launches {_tc_counts()}, want {(L, L)}")
         check(bool(torch.isfinite(bc_loss)), f"BC loss {bc_loss.item()}")
         log(f"BC step {i} B={TRAIN_B} T={TRAIN_T}: {time.perf_counter() - t0:.4f} s, loss {bc_loss.item():.4f}, "
-            f"launches {counts}")
-    return dict(zip(("flash_fwd_train_step", "flash_bwd_dq", "flash_bwd_dkv"), step_counts))
+            f"launches {counts}, tensor-core backward {_tc_counts()}")
+    names = ("flash_fwd_train_step", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+    return dict(zip(names, step_counts))
 
 
 def phase_train_card_vs_cpu(config) -> None:
@@ -779,6 +826,7 @@ def phase_train_card_vs_cpu(config) -> None:
         if d == "cuda":
             L = cfg.num_layers
             check(_train_counts() == (3 * L, L, L), f"card step launches {_train_counts()}")
+            check(_tc_counts() == (0, 0), f"f32 card step: tensor-core backward launches {_tc_counts()}, want none")
         runs.append((loss.item(), [{k: g.cpu() for k, g in group.items()} for group in grads]))
         del state, mods
     (l_card, g_card), (l_cpu, g_cpu) = runs
@@ -821,7 +869,10 @@ def main() -> int:
         "flash_bwd_dkv": "lmrl_gym_tpu/ops/flash_attention.py:229",
         "decode_attn": "lmrl_gym_tpu/ops/decode_attention.py:83",
     }
-    source = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd", "decode_attn": "decode_attn"}
+    # the train step's K2 and K3 run the tensor-core variant (bf16, Dh=64);
+    # csrc/flash_bwd.cu keeps f32 and Dh=256
+    source = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_tc", "flash_bwd_dkv": "flash_bwd_tc",
+              "decode_attn": "decode_attn"}
     kernels = [
         {
             "name": name,
@@ -843,6 +894,10 @@ def main() -> int:
     kernels[0].update(launches_train_step=launches["flash_fwd_train_step"], ms_train_step=train_fwd["ms"],
                       plain_ms_train_step=train_fwd["plain_ms"], bound_ms_train_step=train_fwd["bound_ms"],
                       bound_by_train_step=train_fwd["bound_by"], library_ms_train_step=train_fwd["library_ms"])
+    for entry in kernels[1:3]:
+        name = entry["name"]
+        entry.update(variant="tc", tc_launches=launches[f"{name}_tc"], delta_ms=shapes[name]["delta_ms"],
+                     pair_plus_delta_ms=shapes[name]["pair_plus_delta_ms"])
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

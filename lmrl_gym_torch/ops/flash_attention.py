@@ -1,6 +1,8 @@
 """Causal flash attention: the forward kernel `csrc/flash_fwd.cu`, the two
-backward kernels `csrc/flash_bwd.cu`, their plain PyTorch versions, and the
-`torch.autograd.Function` that joins them.
+backward kernels in two variants (`csrc/flash_bwd_tc.cu` on the tensor
+cores for bf16 with Dh a multiple of 16 up to 128, `csrc/flash_bwd.cu` on
+the fp32 CUDA cores for the rest; `_bwd_variant` chooses), their plain
+PyTorch versions, and the `torch.autograd.Function` that joins them.
 
 Replaces the Pallas kernels of `lmrl_gym_tpu/ops/flash_attention.py`:
 `_flash_kernel` (K1, behind `_flash_forward`), `_flash_bwd_dq_kernel` (K2)
@@ -15,9 +17,10 @@ package does), the bias (a padding mask) without a gradient.
 On an H100 the forward is bound by device-memory bytes at the serving
 path's shapes (Tq ≤ 10 queries over ≤ 128 cached keys, Dh = 64: about 10
 FLOP per byte read), and so are the backward kernels at the training shapes
-(T = 160, Dh = 64: about 50 FLOP per byte). The first designs stream tiles
-through shared memory in fp32 on the CUDA cores; see the kernel sources for
-what they leave on the table.
+(T = 160, Dh = 64: about 50 FLOP per byte). The forward and the "simt"
+backward stream tiles through shared memory in fp32 on the CUDA cores; the
+"tc" backward runs bf16 mma.sync on 64-row tiles behind a cp.async ring.
+See the kernel sources for what each leaves on the table.
 
 Unlike the JAX package (which used the kernels only for T ≥ 1024 on a TPU),
 the port runs them for every attention with more than one query on CUDA:
@@ -28,7 +31,7 @@ backward of every trained forward.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -40,7 +43,7 @@ _NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
-_bwd_lib: Optional[ctypes.CDLL] = None
+_bwd_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _plain_scores(q, k, bias, causal: bool, sm_scale: float):
@@ -91,8 +94,10 @@ def _plain_bwd_dkv(q, k, v, bias, lse, delta, dout, causal: bool, sm_scale: floa
 
 def _delta(out, dout):
     """Δ = rowsum(dO ⊙ O) [B,H,Tq] f32 (the JAX package computes it in XLA,
-    outside its kernels)."""
-    return (dout.float() * out.float()).sum(-1)
+    outside its kernels). Only dO is cast: f32 × bf16 promotes O exactly
+    inside the product, so the products are those of two f32 casts, with one
+    f32 copy fewer."""
+    return (dout.float() * out).sum(-1)
 
 
 def _plain_flash_backward(q, k, v, bias, out, lse, dout, causal: bool, sm_scale: float):
@@ -118,17 +123,48 @@ def _load():
     return _lib
 
 
-def _load_bwd():
-    global _bwd_lib
-    if _bwd_lib is None:
-        lib = _build.load("flash_bwd")
+_BWD_SUFFIX = {"simt": "", "tc": "_tc"}  # source csrc/flash_bwd<suffix>.cu, functions flash_bwd_{dq,dkv}<suffix>
+
+
+def _load_bwd(variant: str):
+    """The library of one backward variant: "simt" → `csrc/flash_bwd.cu`
+    (fp32 CUDA cores, f32 or bf16 by a dtype code), "tc" →
+    `csrc/flash_bwd_tc.cu` (tensor cores, bf16 only)."""
+    lib = _bwd_libs.get(variant)
+    if lib is None:
+        suffix = _BWD_SUFFIX[variant]
+        lib = _build.load("flash_bwd" + suffix)
+        head = [ctypes.c_int] if variant == "simt" else []  # the dtype code
         tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        lib.flash_bwd_dq.restype = ctypes.c_int
-        lib.flash_bwd_dq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15 + tail
-        lib.flash_bwd_dkv.restype = ctypes.c_int
-        lib.flash_bwd_dkv.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 18 + tail
-        _bwd_lib = lib
-    return _bwd_lib
+        dq, dkv = getattr(lib, "flash_bwd_dq" + suffix), getattr(lib, "flash_bwd_dkv" + suffix)
+        dq.restype = dkv.restype = ctypes.c_int
+        dq.argtypes = head + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15 + tail
+        dkv.argtypes = head + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 18 + tail
+        _bwd_libs[variant] = lib
+    return lib
+
+
+def _bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which backward kernels (K2, K3) take inputs of this dtype and head
+    dim: "tc" (`csrc/flash_bwd_tc.cu`, tensor cores) for bf16 with a head
+    dim that is a multiple of 16 up to 128; "simt" (`csrc/flash_bwd.cu`,
+    fp32 CUDA cores) for the rest: f32, whose products would otherwise go
+    through TF32 (off by the port's rule, `core/device.py`), and Dh = 256."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128:
+        return "tc"
+    return "simt"
+
+
+def _check_tc_alignment(**tensors):
+    """The tensor-core kernels copy rows in 16-byte pieces: each input must
+    start on 16 bytes, with batch, head and row strides in multiples of 8
+    elements (views into a fused qkv projection are, for Dh % 8 == 0)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(
+                f"flash backward (tensor cores): {name} must start on 16 bytes with strides in multiples of 8 "
+                f"elements, got offset {t.data_ptr() % 16} and strides {tuple(t.stride())}"
+            )
 
 
 def _check_cuda_inputs(q, k, v, bias):
@@ -219,62 +255,68 @@ def _check_cuda_grad_inputs(q, k, v, bias, dout, lse, delta):
             raise ValueError(f"flash backward: {name} must be contiguous float32 {tuple(q.shape[:3])} on {q.device}")
 
 
-def flash_bwd_dq(q, k, v, bias, lse, delta, dout, causal: bool = True, sm_scale: Optional[float] = None) -> torch.Tensor:
-    """K2: dQ [B,H,Tq,Dh] in q's dtype from the forward's lse and Δ =
-    rowsum(dO ⊙ O). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (strided inputs as `flash_fwd` takes them)."""
-    if sm_scale is None:
-        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    if not q.is_cuda:
-        return _plain_bwd_dq(q, k, v, bias, lse, delta, dout, causal, sm_scale)
+def _launch_bwd(wrapper, kernel: str, q, k, v, bias, lse, delta, dout, grads, causal: bool, sm_scale: float):
+    """Launch K2 (kernel "dq", grads (dq,)) or K3 ("dkv", grads (dk, dv))
+    of the variant `_bwd_variant` picks, and count it on `wrapper`. A
+    refused launch raises; nothing falls back to the other variant."""
     _check_cuda_grad_inputs(q, k, v, bias, dout, lse, delta)
     B, H, Tq, Dh = q.shape
     S = k.shape[2]
-    dq = _grad_like(q)
-    rc = _load_bwd().flash_bwd_dq(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        B, H, Tq, S, Dh, *_strides(q), *_strides(k), *_strides(v), *_strides(dout), *_strides(dq),
+    variant = _bwd_variant(q.dtype, Dh)
+    if variant == "tc":
+        _check_tc_alignment(q=q, k=k, v=v, dout=dout)
+    fn = getattr(_load_bwd(variant), f"flash_bwd_{kernel}{_BWD_SUFFIX[variant]}")
+    head = (_DTYPE_CODE[q.dtype],) if variant == "simt" else ()
+    rc = fn(
+        *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr(),
+        *(g.data_ptr() for g in grads), B, H, Tq, S, Dh,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(dout), *(s for g in grads for s in _strides(g)),
         bias.stride(0) if bias is not None else 0, S - Tq, float(sm_scale), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_bwd_dq: kernel launch failed with CUDA error {rc}")
-    flash_bwd_dq.launches += 1
+        raise RuntimeError(f"flash_bwd_{kernel} ({variant}): kernel launch failed with CUDA error {rc}")
+    wrapper.launches += 1
+    if variant == "tc":
+        wrapper.tc_launches += 1
+
+
+def flash_bwd_dq(q, k, v, bias, lse, delta, dout, causal: bool = True, sm_scale: Optional[float] = None) -> torch.Tensor:
+    """K2: dQ [B,H,Tq,Dh] in q's dtype from the forward's lse and Δ =
+    rowsum(dO ⊙ O). CPU tensors take the plain version; CUDA tensors
+    launch the kernel of the variant `_bwd_variant` picks (strided inputs
+    as `flash_fwd` takes them)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if not q.is_cuda:
+        return _plain_bwd_dq(q, k, v, bias, lse, delta, dout, causal, sm_scale)
+    dq = _grad_like(q)
+    _launch_bwd(flash_bwd_dq, "dq", q, k, v, bias, lse, delta, dout, (dq,), causal, sm_scale)
     return dq
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = 0  # every launch
+flash_bwd_dq.tc_launches = 0  # of those, the tensor-core variant's
 
 
 def flash_bwd_dkv(
     q, k, v, bias, lse, delta, dout, causal: bool = True, sm_scale: Optional[float] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (dK, dV) [B,H,S,Dh] in k's and v's dtype. CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    plain version; CUDA tensors launch the kernel of the variant
+    `_bwd_variant` picks."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if not q.is_cuda:
         return _plain_bwd_dkv(q, k, v, bias, lse, delta, dout, causal, sm_scale)
-    _check_cuda_grad_inputs(q, k, v, bias, dout, lse, delta)
-    B, H, Tq, Dh = q.shape
-    S = k.shape[2]
     dk, dv = _grad_like(k), _grad_like(v)
-    rc = _load_bwd().flash_bwd_dkv(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, H, Tq, S, Dh,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(dout), *_strides(dk), *_strides(dv),
-        bias.stride(0) if bias is not None else 0, S - Tq, float(sm_scale), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_bwd_dkv: kernel launch failed with CUDA error {rc}")
-    flash_bwd_dkv.launches += 1
+    _launch_bwd(flash_bwd_dkv, "dkv", q, k, v, bias, lse, delta, dout, (dk, dv), causal, sm_scale)
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = 0  # every launch
+flash_bwd_dkv.tc_launches = 0  # of those, the tensor-core variant's
 
 
 class _FlashAttnFunction(torch.autograd.Function):

@@ -9,7 +9,9 @@ Without a CUDA device every test here skips (the kernels have no CPU mode).
 Tolerances, |kernel − plain| ≤ atol + rtol·|plain|: f32 atol 1e-4
 (summation order only); bf16 atol 1e-2, rtol 2⁻⁶ — two bf16 ulps, since
 both sides round the output (and the plain version its probabilities) to
-bf16.
+bf16. The tensor-core backward also rounds P and dS to bf16 before its
+second products; tests/test_torch_flash_bwd_tc.py shows on the CPU that
+this stays inside the same tolerance.
 """
 import numpy as np
 import pytest
@@ -135,14 +137,19 @@ def _grad_excess(out, ref, dtype):
 @pytest.mark.parametrize("T", [1, 17, 160, 200])
 @pytest.mark.parametrize("Dh", [32, 64, 128])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, padded, T, Dh):
-    """K2 and K3 against their plain versions on the same inputs (Δ too)."""
-    B, H = 4, 3
-    q, k, v, bias, out, lse, dout = _bwd_case(B, H, T, T, Dh, dtype, padded, seed=T + Dh)
+    """K2 and K3, of the variant the dispatch picks (bf16: tensor cores;
+    f32: CUDA cores), against their plain versions on the same inputs."""
+    _check_bwd_against_plain(4, 3, T, T, Dh, dtype, padded, seed=T + Dh, tc=dtype == torch.bfloat16)
+
+
+def _check_bwd_against_plain(B, H, Tq, S, Dh, dtype, padded, seed, tc: bool):
+    q, k, v, bias, out, lse, dout = _bwd_case(B, H, Tq, S, Dh, dtype, padded, seed=seed)
     delta = tfa._delta(out, dout)
-    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    wrappers = (tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    before = [(w.launches, w.tc_launches) for w in wrappers]
     dq = tfa.flash_bwd_dq(q, k, v, bias, lse, delta, dout)
     dk, dv = tfa.flash_bwd_dkv(q, k, v, bias, lse, delta, dout)
-    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    assert [(w.launches - n, w.tc_launches - n_tc) for w, (n, n_tc) in zip(wrappers, before)] == [(1, int(tc))] * 2
     scale = 1.0 / Dh**0.5
     ref_dq = tfa._plain_bwd_dq(q, k, v, bias, lse, delta, dout, True, scale)
     ref_dk, ref_dv = tfa._plain_bwd_dkv(q, k, v, bias, lse, delta, dout, True, scale)
@@ -150,6 +157,19 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, padded, T, Dh):
     for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         assert got.shape == ref.shape and got.dtype == ref.dtype
         assert _grad_excess(got, ref, dtype).max().item() <= GRAD_TOL[dtype][0]
+
+
+@pytest.mark.parametrize("variant", ["tc", "simt"])
+@pytest.mark.parametrize(
+    "B,H,Tq,S,Dh,padded",
+    [(4, 3, 100, 100, 64, True), (4, 3, 37, 100, 64, False), (2, 4, 160, 160, 128, True), (3, 2, 65, 65, 16, False),
+     (2, 2, 64, 64, 32, True), (2, 2, 129, 130, 48, True)],
+)
+def test_flash_bwd_variants_match_plain(cuda, monkeypatch, variant, B, H, Tq, S, Dh, padded):
+    """Each backward variant, forced, in bf16: ragged T (not a multiple of
+    the 64-row tile), right-aligned queries, Dh from 16 to 128."""
+    monkeypatch.setattr(tfa, "_bwd_variant", lambda dtype, head_dim: variant)
+    _check_bwd_against_plain(B, H, Tq, S, Dh, torch.bfloat16, padded, seed=Tq + Dh, tc=variant == "tc")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -203,6 +223,19 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tda.decode_attention(q, k, k, 3)  # two queries
     with pytest.raises(TypeError):
         tfa.flash_fwd(q.half(), k.half(), k.half())
+    # the tensor-core backward copies 16-byte rows: a q that starts 2 bytes
+    # into its buffer, or whose rows are 68 elements apart, is refused
+    B, H, T, Dh = 1, 2, 16, 64
+    k, v, dout = (_randn(B, H, T, Dh, dtype=torch.bfloat16, seed=s) for s in (1, 2, 3))
+    lse, delta = torch.zeros(B, H, T, device="cuda"), torch.zeros(B, H, T, device="cuda")
+    shifted = _randn(B * H * T * Dh + 1, dtype=torch.bfloat16, seed=4)[1:].view(B, H, T, Dh)
+    wide_rows = _randn(B, H, T, Dh + 4, dtype=torch.bfloat16, seed=5)[..., :Dh]
+    assert tfa._bwd_variant(torch.bfloat16, Dh) == "tc"
+    for q in (shifted, wide_rows):
+        with pytest.raises(ValueError):
+            tfa.flash_bwd_dq(q, k, v, None, lse, delta, dout)
+        with pytest.raises(ValueError):
+            tfa.flash_bwd_dkv(q, k, v, None, lse, delta, dout)
 
 
 @pytest.mark.parametrize("variant", [{}, dict(position_embedding="rotary", rotary_interleaved=True, parallel_ffn=True)])
