@@ -13,16 +13,19 @@ Phases, each of which exits non-zero on failure:
    and backward kernels, the training shapes (B=32, H=12, T=160, Dh=64,
    with a left-padded and a right-aligned Tq < S case; the forward also at
    the next window's T=16), a ragged T=100 (and Tq=37 over S=100) and
-   Dh=128 at B=4, H=32, T=160, in bf16 (the backward's tensor-core
-   variant) and f32 (its CUDA-core variant), with the max abs error, its
-   tolerance, and the kernel, plain and library
+   Dh=128 at B=4, H=32, T=160, in bf16 (the tensor-core variant of the
+   forward and the backward) and f32 (their CUDA-core variant), with the
+   max abs error, its tolerance (and on fully masked left-pad rows lse
+   equal to the plain version's −0.7·f32max), the variant each launch
+   took, and the kernel, plain and library
    (scaled_dot_product_attention, forward or backward, a yardstick the port
    never calls) times;
 3. serving at full width: value-guided Wordle serving with GPT-2-small
    (vocab 50,257 padded to 50,304), bf16 weights from a seed, two trunks,
    twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and five
-   timed `rollout_wordle`s, each with the kernels' launch counts and the
-   rollout's invariants checked, and one more under torch.profiler for the
+   timed `rollout_wordle`s, each with the kernels' launch counts (every
+   flash_fwd launch the tensor-core variant) and the rollout's invariants
+   checked, and one more under torch.profiler for the
    device busy time, idle share and device time by kernel category; then
    `ValueGuidedServer.generate_from_strs` answers 4 left-padded prompts;
 3t. training at full width, at `bench.py::bench_ilql_real_vocab`'s
@@ -30,22 +33,24 @@ Phases, each of which exits non-zero on failure:
    bf16 activations), twin MLP Q heads (hidden 1536, out 50,304) and a V
    head, a separate target base, AdamW, B=32, T=160, next window 16 — one
    warm-up and ten timed steps, each with its launch counts (36 flash_fwd,
-   12 flash_bwd_dq, 12 flash_bwd_dkv, every backward launch the
-   tensor-core variant) and a finite loss checked, then one more under
+   12 flash_bwd_dq, 12 flash_bwd_dkv, every launch the tensor-core
+   variant) and a finite loss checked, then one more under
    torch.profiler; then three BC steps on the same trunk (12/12/12
    launches, the same check);
 4. the same full-width serving weights at B=4 on the card (kernels, bf16)
    against the CPU (plain path, f32): header prefill plus 3 decode steps;
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
    CPU: loss within 1e-4 relative, each parameter group's gradient within
-   1e-3 in relative norm;
+   1e-3 in relative norm, no launch on the tensor-core variant;
 5. a `{"kernels": [...]}` line: per kernel its launches on its path (per
    rollout, or per train step) and its mean time per launch over that
    path's shapes beside the bound (bytes or FLOPs at the H100's published
-   peaks), the plain version's and the library call's. flash_fwd runs on
+   peaks), the plain version's and the library call's; for flash_fwd also
+   the CUDA-core variant's time on the same shapes (`simt_ms`), the
+   kernel the tensor-core one replaced there. flash_fwd runs on
    both paths: its main keys are the rollout's, and the `*_train_step`
-   keys the same numbers for one ILQL train step. flash_bwd_dq and
-   flash_bwd_dkv carry their `variant`, and beside SDPA's backward
+   keys the same numbers for one ILQL train step. Every kernel with two
+   variants carries the `variant` its main path runs and its `tc_launches`; and beside SDPA's backward
    (`library_ms`, which computes its own rowsum(dO ⊙ O)) the port's Δ pass
    (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`).
 
@@ -54,6 +59,7 @@ script exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -80,6 +86,7 @@ from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
 from lmrl_gym_torch.models.interface import LMCore
 from lmrl_gym_torch.models.transformer import Transformer, init_params
 from lmrl_gym_torch.ops import _build
+from lmrl_gym_torch.ops import flash_attention as flash_module
 from lmrl_gym_torch.ops.decode_attention import _plain_decode_attention, decode_attention
 from lmrl_gym_torch.ops.flash_attention import (
     _NEG_BIG,
@@ -87,6 +94,7 @@ from lmrl_gym_torch.ops.flash_attention import (
     _plain_attention,
     _plain_bwd_dkv,
     _plain_bwd_dq,
+    _variant,
     flash_bwd_dkv,
     flash_bwd_dq,
     flash_fwd,
@@ -210,6 +218,19 @@ def bwd_work(b: int, Tq: int, S: int, dtype, kernel: str, with_bias: bool) -> tu
     return n_bytes, (6.0 if kernel == "dq" else 8.0) * DH * pairs
 
 
+@contextlib.contextmanager
+def forced_variant(variant: str):
+    """K1-K3 launch `variant` whatever `_variant` picks: times the
+    CUDA-core forward that the tensor-core one replaced on the main paths,
+    in the same run and on the same inputs."""
+    picked = flash_module._variant
+    flash_module._variant = lambda dtype, head_dim: variant
+    try:
+        yield
+    finally:
+        flash_module._variant = picked
+
+
 def sdpa_mask(bias, Tq: int, S: int, b: int = B):
     """Boolean [b,1,Tq,S] mask (True = attend) for the library yardstick."""
     q_pos = torch.arange(Tq, device="cuda") + (S - Tq)
@@ -242,7 +263,7 @@ def phase_device() -> str:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    reports = _build.build_all(["flash_fwd", "flash_bwd", "flash_bwd_tc", "decode_attn"])
+    reports = _build.build_all(["flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc", "decode_attn"])
     log(f"kernel build: {time.perf_counter() - t0:.2f} s for {sorted(reports) or 'nothing (cached)'}")
     for name, report in sorted(reports.items()):
         for line in report.splitlines():
@@ -278,10 +299,16 @@ def _decode_inputs(index, dtype, padded, gen):
 def _check_fwd(q, k, v, bias, rows, dtype, label: str) -> tuple:
     """flash_fwd against _plain_attention on the same inputs: out within
     TOL and lse within 1e-3 on the query rows that see a key (`rows`,
-    [b, Tq]; fully padded rows hold garbage in both). Returns (max abs
-    error of out, of lse)."""
+    [b, Tq]; the outputs of fully padded rows hold garbage in both), lse of
+    the fully padded rows equal to the plain version's (−0.7·f32max, which
+    the backward reads as P = 1), and the launch on the variant `_variant`
+    picks. Returns (max abs error of out, of lse)."""
     scale = 1.0 / q.shape[-1]**0.5
+    tc0 = flash_fwd.tc_launches
     out, lse = flash_fwd(q, k, v, bias, True, scale)
+    n_tc = flash_fwd.tc_launches - tc0
+    want_tc = int(_variant(dtype, q.shape[-1]) == "tc")
+    check(n_tc == want_tc, f"flash_fwd {label} {dtype}: tensor-core launches {n_tc}, want {want_tc}")
     ref, ref_lse = _plain_attention(q, k, v, bias, True, scale)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().amax(dim=(1, 3))[rows].max().item()
@@ -289,6 +316,9 @@ def _check_fwd(q, k, v, bias, rows, dtype, label: str) -> tuple:
     lse_err = (lse - ref_lse).abs()[rows[:, None, :].expand_as(lse)].max().item()
     check(over <= TOL[dtype][0], f"flash_fwd {label} {dtype}: max abs err {err} over tolerance {TOL[dtype]}")
     check(lse_err <= 1e-3, f"flash_fwd {label} {dtype}: lse err {lse_err}")
+    dead = (~rows)[:, None, :].expand_as(lse)
+    check(bool(torch.isfinite(lse).all() and torch.equal(lse[dead], ref_lse[dead]) and (lse[dead] == _NEG_BIG).all()),
+          f"flash_fwd {label} {dtype}: lse of fully padded rows differs from the plain version's")
     return err, lse_err
 
 
@@ -447,17 +477,19 @@ def phase_train_shapes() -> dict:
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         out[name]["pair_plus_delta_ms"] = pair
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, n_bytes=0.0, flops=0.0)
+    fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, simt_ms=0.0, n_bytes=0.0, flops=0.0)
     for T, per_step in ((TRAIN_T, 2), (NEXT_T, 1)):  # launches per layer and step at this shape
         (fq, fk, fv, fbias, *_), _, _ = _bwd_inputs(T, T, dtype, False, gen)
         row = dict(ms=cuda_ms(lambda: flash_fwd(fq, fk, fv, fbias, True, scale)),
                    plain_ms=cuda_ms(lambda: _plain_attention(fq, fk, fv, fbias, True, scale)),
                    library_ms=device_ms(lambda: sdpa(fq, fk, fv, is_causal=True, scale=scale)))
+        with forced_variant("simt"):
+            row["simt_ms"] = cuda_ms(lambda: flash_fwd(fq, fk, fv, fbias, True, scale))
         n_bytes, flops = (x * TRAIN_B / B for x in flash_work(T, T, dtype))
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, flops, dtype)
         log(f"train-step shapes flash_fwd B={TRAIN_B} T={T} (bf16, per launch): "
             + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
-        for key in ("ms", "plain_ms", "library_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "simt_ms"):
             fwd[key] += per_step * row[key] / 3
         fwd["n_bytes"] += per_step * n_bytes / 3
         fwd["flops"] += per_step * flops / 3
@@ -485,7 +517,7 @@ def phase_main_path_shapes() -> dict:
     decode_index = [8 + 20 * t + s for t in range(N_TRIES) for s in range(10)]
     out = {}
 
-    sums = [0.0, 0.0, 0.0, 0.0]
+    sums = [0.0, 0.0, 0.0, 0.0, 0.0]
     k_all = torch.randn(B, H, T_MAX, DH, device="cuda", generator=gen).to(dtype)
     v_all = torch.randn(B, H, T_MAX, DH, device="cuda", generator=gen).to(dtype)
     for Tq, S in flash_shapes:
@@ -496,10 +528,12 @@ def phase_main_path_shapes() -> dict:
         sums[1] += cuda_ms(lambda: _plain_attention(q, k, v, None, True, scale))
         sums[2] += cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale))
         sums[3] += bound_ms(*flash_work(Tq, S, dtype), dtype)[0]
+        with forced_variant("simt"):
+            sums[4] += cuda_ms(lambda: flash_fwd(q, k, v, None, True, scale))
     n = len(flash_shapes)
     out["flash_fwd"] = dict(
         ms=sums[0] / n, plain_ms=sums[1] / n, library_ms=sums[2] / n, bound_ms=sums[3] / n,
-        bound_by=bound_ms(*flash_work(10, 128, dtype), dtype)[1],
+        bound_by=bound_ms(*flash_work(10, 128, dtype), dtype)[1], simt_ms=sums[4] / n,
     )
 
     sums = [0.0, 0.0, 0.0, 0.0]
@@ -522,7 +556,7 @@ def phase_main_path_shapes() -> dict:
 
 
 def _reset_counts():
-    flash_fwd.launches = 0
+    flash_fwd.launches = flash_fwd.tc_launches = 0
     decode_attention.launches = 0
     flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
     flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
@@ -638,9 +672,12 @@ def phase_slice() -> dict:
         n_flash, n_decode = _counts()
         check(n_flash == 7 * config.num_layers * 2, f"flash_fwd launched {n_flash} times, want 168")
         check(n_decode == 60 * config.num_layers * 2, f"decode_attn launched {n_decode} times, want 1440")
+        check(flash_fwd.tc_launches == n_flash, f"flash_fwd: {flash_fwd.tc_launches} of {n_flash} launches on the tensor cores")
         _check_rollout(out, env)
+        rollout_tc = flash_fwd.tc_launches
         ret = (out.turn_reward * out.turn_live).sum(1).mean().item()
-        log(f"rollout {rep} B={B}: {times[-1]:.4f} s, launches flash_fwd={n_flash} decode_attn={n_decode}, "
+        log(f"rollout {rep} B={B}: {times[-1]:.4f} s, launches flash_fwd={n_flash} (tensor cores "
+            f"{flash_fwd.tc_launches}) decode_attn={n_decode}, "
             f"return={ret:.3f} win={out.win.float().mean().item():.3f} turns={out.n_turns.float().mean().item():.2f}")
     dt = sorted(times)[len(times) // 2]
     log(f"rollout median of {ROLLOUT_REPS}: {dt:.4f} s (min {min(times):.4f}, max {max(times):.4f}), "
@@ -667,10 +704,11 @@ def phase_slice() -> dict:
         f"decode_attn={n_decode}")
     check(len(answers) == len(prompts) and all(isinstance(a, str) for a in answers), "server answers")
     check(n_flash == config.num_layers * 2 and n_decode == 10 * config.num_layers * 2, "server launch counts")
+    check(flash_fwd.tc_launches == n_flash, f"server: {flash_fwd.tc_launches} of {n_flash} flash_fwd launches on the tensor cores")
     log("  (random weights over the 50,257-token vocab: ids >= 256 have no byte and decode to nothing)")
     for p, a in zip(prompts, answers):
         log(f"  prompt {p!r} -> {a!r}")
-    return {"flash_fwd": 7 * config.num_layers * 2, "decode_attn": 60 * config.num_layers * 2,
+    return {"flash_fwd": 7 * config.num_layers * 2, "flash_fwd_tc": rollout_tc, "decode_attn": 60 * config.num_layers * 2,
             "base": base, "config": config}
 
 
@@ -772,7 +810,8 @@ def phase_train(config) -> dict:
         counts = _train_counts()
         check(counts == want, f"ILQL step launched flash_fwd/bwd_dq/bwd_dkv {counts}, want {want}")
         check(_tc_counts() == (L, L), f"ILQL step: tensor-core backward launches {_tc_counts()}, want {(L, L)}")
-        step_counts = counts + _tc_counts()
+        check(flash_fwd.tc_launches == 3 * L, f"ILQL step: tensor-core forward launches {flash_fwd.tc_launches}, want {3 * L}")
+        step_counts = counts + _tc_counts() + (flash_fwd.tc_launches,)
         losses.append(loss)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t_all
@@ -784,7 +823,7 @@ def phase_train(config) -> dict:
         f"mfu={flops * ups / PEAK_FLOPS[torch.bfloat16]:.4f} (bench.py's count {flops / 1e12:.3f} TFLOP per update "
         f"over 989 TF/s) peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"host_ms_per_step_call={1e3 * sum(times) / len(times):.1f}; launches per step {want}, "
-        f"tensor-core backward {step_counts[3:]}; "
+        f"tensor-core backward {step_counts[3:5]}, forward {step_counts[5]}; "
         f"losses {[round(x, 4) for x in losses.tolist()]}; last logs q1_loss={logs['losses']['q1_loss'].item():.4f} "
         f"v_loss={logs['losses']['v_loss'].item():.4f} q1_cql={logs['losses']['q1_cql_loss'].item():.4f}")
     profile_run("train step", lambda: step(state, batch), dt / TRAIN_REPS)
@@ -802,10 +841,12 @@ def phase_train(config) -> dict:
         counts = _train_counts()
         check(counts == (L, L, L), f"BC step launched {counts}, want {(L, L, L)}")
         check(_tc_counts() == (L, L), f"BC step: tensor-core backward launches {_tc_counts()}, want {(L, L)}")
+        check(flash_fwd.tc_launches == L, f"BC step: tensor-core forward launches {flash_fwd.tc_launches}, want {L}")
         check(bool(torch.isfinite(bc_loss)), f"BC loss {bc_loss.item()}")
         log(f"BC step {i} B={TRAIN_B} T={TRAIN_T}: {time.perf_counter() - t0:.4f} s, loss {bc_loss.item():.4f}, "
-            f"launches {counts}, tensor-core backward {_tc_counts()}")
-    names = ("flash_fwd_train_step", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+            f"launches {counts}, tensor-core backward {_tc_counts()}, forward {flash_fwd.tc_launches}")
+    names = ("flash_fwd_train_step", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",
+             "flash_fwd_tc_train_step")
     return dict(zip(names, step_counts))
 
 
@@ -827,6 +868,7 @@ def phase_train_card_vs_cpu(config) -> None:
             L = cfg.num_layers
             check(_train_counts() == (3 * L, L, L), f"card step launches {_train_counts()}")
             check(_tc_counts() == (0, 0), f"f32 card step: tensor-core backward launches {_tc_counts()}, want none")
+            check(flash_fwd.tc_launches == 0, f"f32 card step: tensor-core forward launches {flash_fwd.tc_launches}, want none")
         runs.append((loss.item(), [{k: g.cpu() for k, g in group.items()} for group in grads]))
         del state, mods
     (l_card, g_card), (l_cpu, g_cpu) = runs
@@ -869,9 +911,9 @@ def main() -> int:
         "flash_bwd_dkv": "lmrl_gym_tpu/ops/flash_attention.py:229",
         "decode_attn": "lmrl_gym_tpu/ops/decode_attention.py:83",
     }
-    # the train step's K2 and K3 run the tensor-core variant (bf16, Dh=64);
-    # csrc/flash_bwd.cu keeps f32 and Dh=256
-    source = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_tc", "flash_bwd_dkv": "flash_bwd_tc",
+    # both main paths run K1, K2 and K3 on the tensor-core variant (bf16,
+    # Dh=64); csrc/flash_fwd.cu and csrc/flash_bwd.cu keep f32 and Dh=256
+    source = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dq": "flash_bwd_tc", "flash_bwd_dkv": "flash_bwd_tc",
               "decode_attn": "decode_attn"}
     kernels = [
         {
@@ -891,9 +933,12 @@ def main() -> int:
     ]
     # flash_fwd runs on both paths: its serving row above, its train step here
     train_fwd = shapes["flash_fwd_train_step"]
-    kernels[0].update(launches_train_step=launches["flash_fwd_train_step"], ms_train_step=train_fwd["ms"],
+    kernels[0].update(variant="tc", tc_launches=launches["flash_fwd_tc"],
+                      launches_train_step=launches["flash_fwd_train_step"],
+                      tc_launches_train_step=launches["flash_fwd_tc_train_step"], ms_train_step=train_fwd["ms"],
                       plain_ms_train_step=train_fwd["plain_ms"], bound_ms_train_step=train_fwd["bound_ms"],
-                      bound_by_train_step=train_fwd["bound_by"], library_ms_train_step=train_fwd["library_ms"])
+                      bound_by_train_step=train_fwd["bound_by"], library_ms_train_step=train_fwd["library_ms"],
+                      simt_ms=shapes["flash_fwd"]["simt_ms"], simt_ms_train_step=train_fwd["simt_ms"])
     for entry in kernels[1:3]:
         name = entry["name"]
         entry.update(variant="tc", tc_launches=launches[f"{name}_tc"], delta_ms=shapes[name]["delta_ms"],

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles, on its own,
 into `build/kernels/<name>-<hash>.so` beside the package (the directory is
-git-ignored). The hash covers the source and the flags, so an edited
-kernel is rebuilt and a stale library is never loaded. Nothing is built
+git-ignored); sources may include the shared headers `csrc/*.cuh`. The
+hash covers the source, every header and the flags, so an edited kernel is
+rebuilt and a stale library is never loaded. Nothing is built
 when a module is imported: `load` builds at first use, and
 `build_all` starts one `nvcc` per source, all at once, for callers that
 want every kernel ready up front.
@@ -52,8 +53,10 @@ def _source(name: str) -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256()
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [_source(name)] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

@@ -1,7 +1,8 @@
-"""Causal flash attention: the forward kernel `csrc/flash_fwd.cu`, the two
-backward kernels in two variants (`csrc/flash_bwd_tc.cu` on the tensor
-cores for bf16 with Dh a multiple of 16 up to 128, `csrc/flash_bwd.cu` on
-the fp32 CUDA cores for the rest; `_bwd_variant` chooses), their plain
+"""Causal flash attention: the forward kernel (K1) and the two backward
+kernels (K2, K3), each in two variants — `csrc/flash_fwd_tc.cu` and
+`csrc/flash_bwd_tc.cu` on the tensor cores for bf16 with Dh a multiple of
+16 up to 128, `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu` on the fp32 CUDA
+cores for the rest; `_variant` chooses for both directions — their plain
 PyTorch versions, and the `torch.autograd.Function` that joins them.
 
 Replaces the Pallas kernels of `lmrl_gym_tpu/ops/flash_attention.py`:
@@ -16,11 +17,13 @@ package does), the bias (a padding mask) without a gradient.
 
 On an H100 the forward is bound by device-memory bytes at the serving
 path's shapes (Tq ≤ 10 queries over ≤ 128 cached keys, Dh = 64: about 10
-FLOP per byte read), and so are the backward kernels at the training shapes
-(T = 160, Dh = 64: about 50 FLOP per byte). The forward and the "simt"
-backward stream tiles through shared memory in fp32 on the CUDA cores; the
-"tc" backward runs bf16 mma.sync on 64-row tiles behind a cp.async ring.
-See the kernel sources for what each leaves on the table.
+FLOP per byte read) and by latency at the training shapes (T = 160: a
+block runs 1–3 short key tiles), and so are the backward kernels (T = 160,
+Dh = 64: about 50 FLOP per byte). The "tc" kernels run bf16 mma.sync with
+f32 sums behind a 16-byte cp.async ring; the forward's block shape follows
+Tq (64 query rows per block, or one (b, h) per warp for Tq ≤ 16). The
+"simt" kernels stream tiles through shared memory in fp32. See the kernel
+sources for what each leaves on the table.
 
 Unlike the JAX package (which used the kernels only for T ≥ 1024 on a TPU),
 the port runs them for every attention with more than one query on CUDA:
@@ -31,7 +34,7 @@ backward of every trained forward.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -42,8 +45,6 @@ from lmrl_gym_torch.ops import _build
 _NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib: Optional[ctypes.CDLL] = None
-_bwd_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _plain_scores(q, k, bias, causal: bool, sm_scale: float):
@@ -109,47 +110,42 @@ def _plain_flash_backward(q, k, v, bias, out, lse, dout, causal: bool, sm_scale:
     return dq, dk, dv
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_fwd")
-        lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_fwd.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 13 + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
-            + [ctypes.c_void_p]
-        )
-        _lib = lib
-    return _lib
+_SUFFIX = {"simt": "", "tc": "_tc"}  # of the source csrc/<source><suffix>.cu and of its C function
+_SOURCE = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd"}
+# argument types after the "simt" variant's leading dtype code: pointers,
+# (B, H, Tq, S, Dh), the (b, h, t) strides of each strided tensor, then
+# bias_sb, offset, scale, causal and the stream
+_ARGTYPES = {
+    "flash_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12,
+    "flash_bwd_dq": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15,
+    "flash_bwd_dkv": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 18,
+}
+_TAIL = [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_fns: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
-_BWD_SUFFIX = {"simt": "", "tc": "_tc"}  # source csrc/flash_bwd<suffix>.cu, functions flash_bwd_{dq,dkv}<suffix>
+def _kernel(name: str, variant: str):
+    """The C entry point of kernel `name` in `variant`: "simt" →
+    `csrc/flash_fwd.cu` or `csrc/flash_bwd.cu` (fp32 CUDA cores, f32 or
+    bf16 by a dtype code), "tc" → `csrc/flash_fwd_tc.cu` or
+    `csrc/flash_bwd_tc.cu` (tensor cores, bf16 only). Built on first use."""
+    fn = _fns.get((name, variant))
+    if fn is None:
+        suffix = _SUFFIX[variant]
+        fn = getattr(_build.load(_SOURCE[name] + suffix), name + suffix)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] if variant == "simt" else []) + _ARGTYPES[name] + _TAIL
+        _fns[(name, variant)] = fn
+    return fn
 
 
-def _load_bwd(variant: str):
-    """The library of one backward variant: "simt" → `csrc/flash_bwd.cu`
-    (fp32 CUDA cores, f32 or bf16 by a dtype code), "tc" →
-    `csrc/flash_bwd_tc.cu` (tensor cores, bf16 only)."""
-    lib = _bwd_libs.get(variant)
-    if lib is None:
-        suffix = _BWD_SUFFIX[variant]
-        lib = _build.load("flash_bwd" + suffix)
-        head = [ctypes.c_int] if variant == "simt" else []  # the dtype code
-        tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        dq, dkv = getattr(lib, "flash_bwd_dq" + suffix), getattr(lib, "flash_bwd_dkv" + suffix)
-        dq.restype = dkv.restype = ctypes.c_int
-        dq.argtypes = head + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15 + tail
-        dkv.argtypes = head + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 18 + tail
-        _bwd_libs[variant] = lib
-    return lib
-
-
-def _bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which backward kernels (K2, K3) take inputs of this dtype and head
-    dim: "tc" (`csrc/flash_bwd_tc.cu`, tensor cores) for bf16 with a head
-    dim that is a multiple of 16 up to 128; "simt" (`csrc/flash_bwd.cu`,
-    fp32 CUDA cores) for the rest: f32, whose products would otherwise go
-    through TF32 (off by the port's rule, `core/device.py`), and Dh = 256."""
+def _variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels (K1 forward; K2, K3 backward) take inputs of this dtype
+    and head dim: "tc" (`csrc/flash_{fwd,bwd}_tc.cu`, tensor cores) for
+    bf16 with a head dim that is a multiple of 16 up to 128; "simt"
+    (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, fp32 CUDA cores) for the
+    rest: f32, whose products would otherwise go through TF32 (off by the
+    port's rule, `core/device.py`), and Dh = 256."""
     if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128:
         return "tc"
     return "simt"
@@ -158,13 +154,44 @@ def _bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
 def _check_tc_alignment(**tensors):
     """The tensor-core kernels copy rows in 16-byte pieces: each input must
     start on 16 bytes, with batch, head and row strides in multiples of 8
-    elements (views into a fused qkv projection are, for Dh % 8 == 0)."""
+    elements (views into a fused qkv projection are, for Dh % 8 == 0, and so
+    are prefixes of a contiguous KV cache)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(
-                f"flash backward (tensor cores): {name} must start on 16 bytes with strides in multiples of 8 "
+                f"flash attention (tensor cores): {name} must start on 16 bytes with strides in multiples of 8 "
                 f"elements, got offset {t.data_ptr() % 16} and strides {tuple(t.stride())}"
             )
+
+
+def _strides(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _launch(wrapper, name: str, pointers, strided: Dict[str, torch.Tensor], q, k, bias, causal: bool,
+            sm_scale: float) -> None:
+    """Launch kernel `name` of the variant `_variant` picks for q, and count
+    it on `wrapper`. `pointers` are the C function's tensor arguments (None
+    for a missing bias), `strided` the tensors whose (b, h, t) strides
+    follow (B, H, Tq, S, Dh), in order. A refused launch raises; nothing
+    falls back to the other variant."""
+    B, H, Tq, Dh = q.shape
+    S = k.shape[2]
+    variant = _variant(q.dtype, Dh)
+    if variant == "tc":
+        _check_tc_alignment(**strided)
+    head = (_DTYPE_CODE[q.dtype],) if variant == "simt" else ()
+    rc = _kernel(name, variant)(
+        *head, *(t.data_ptr() if t is not None else None for t in pointers), B, H, Tq, S, Dh,
+        *(s for t in strided.values() for s in _strides(t)),
+        bias.stride(0) if bias is not None else 0, S - Tq, float(sm_scale), int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} ({variant}): kernel launch failed with CUDA error {rc}")
+    wrapper.launches += 1
+    if variant == "tc":
+        wrapper.tc_launches += 1
 
 
 def _check_cuda_inputs(q, k, v, bias):
@@ -208,34 +235,16 @@ def flash_fwd(
     if not q.is_cuda:
         return _plain_attention(q, k, v, bias, causal, sm_scale)
     _check_cuda_inputs(q, k, v, bias)
-    lib = _load()
     B, H, Tq, Dh = q.shape
-    S = k.shape[2]
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    rc = lib.flash_fwd(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias.data_ptr() if bias is not None else None, out.data_ptr(), lse.data_ptr(),
-        B, H, Tq, S, Dh,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        bias.stride(0) if bias is not None else 0,
-        S - Tq, float(sm_scale), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd: kernel launch failed with CUDA error {rc}")
-    flash_fwd.launches += 1
+    _launch(flash_fwd, "flash_fwd", (q, k, v, bias, out, lse), dict(q=q, k=k, v=v, out=out), q, k, bias, causal,
+            sm_scale)
     return out, lse
 
 
-flash_fwd.launches = 0
-
-
-def _strides(t):
-    return t.stride(0), t.stride(1), t.stride(2)
+flash_fwd.launches = 0  # every launch
+flash_fwd.tc_launches = 0  # of those, the tensor-core variant's
 
 
 def _grad_like(t: torch.Tensor) -> torch.Tensor:
@@ -255,44 +264,19 @@ def _check_cuda_grad_inputs(q, k, v, bias, dout, lse, delta):
             raise ValueError(f"flash backward: {name} must be contiguous float32 {tuple(q.shape[:3])} on {q.device}")
 
 
-def _launch_bwd(wrapper, kernel: str, q, k, v, bias, lse, delta, dout, grads, causal: bool, sm_scale: float):
-    """Launch K2 (kernel "dq", grads (dq,)) or K3 ("dkv", grads (dk, dv))
-    of the variant `_bwd_variant` picks, and count it on `wrapper`. A
-    refused launch raises; nothing falls back to the other variant."""
-    _check_cuda_grad_inputs(q, k, v, bias, dout, lse, delta)
-    B, H, Tq, Dh = q.shape
-    S = k.shape[2]
-    variant = _bwd_variant(q.dtype, Dh)
-    if variant == "tc":
-        _check_tc_alignment(q=q, k=k, v=v, dout=dout)
-    fn = getattr(_load_bwd(variant), f"flash_bwd_{kernel}{_BWD_SUFFIX[variant]}")
-    head = (_DTYPE_CODE[q.dtype],) if variant == "simt" else ()
-    rc = fn(
-        *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr(),
-        *(g.data_ptr() for g in grads), B, H, Tq, S, Dh,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(dout), *(s for g in grads for s in _strides(g)),
-        bias.stride(0) if bias is not None else 0, S - Tq, float(sm_scale), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_bwd_{kernel} ({variant}): kernel launch failed with CUDA error {rc}")
-    wrapper.launches += 1
-    if variant == "tc":
-        wrapper.tc_launches += 1
-
-
 def flash_bwd_dq(q, k, v, bias, lse, delta, dout, causal: bool = True, sm_scale: Optional[float] = None) -> torch.Tensor:
     """K2: dQ [B,H,Tq,Dh] in q's dtype from the forward's lse and Δ =
     rowsum(dO ⊙ O). CPU tensors take the plain version; CUDA tensors
-    launch the kernel of the variant `_bwd_variant` picks (strided inputs
+    launch the kernel of the variant `_variant` picks (strided inputs
     as `flash_fwd` takes them)."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if not q.is_cuda:
         return _plain_bwd_dq(q, k, v, bias, lse, delta, dout, causal, sm_scale)
+    _check_cuda_grad_inputs(q, k, v, bias, dout, lse, delta)
     dq = _grad_like(q)
-    _launch_bwd(flash_bwd_dq, "dq", q, k, v, bias, lse, delta, dout, (dq,), causal, sm_scale)
+    _launch(flash_bwd_dq, "flash_bwd_dq", (q, k, v, dout, bias, lse, delta, dq),
+            dict(q=q, k=k, v=v, dout=dout, dq=dq), q, k, bias, causal, sm_scale)
     return dq
 
 
@@ -305,13 +289,15 @@ def flash_bwd_dkv(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (dK, dV) [B,H,S,Dh] in k's and v's dtype. CPU tensors take the
     plain version; CUDA tensors launch the kernel of the variant
-    `_bwd_variant` picks."""
+    `_variant` picks."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if not q.is_cuda:
         return _plain_bwd_dkv(q, k, v, bias, lse, delta, dout, causal, sm_scale)
+    _check_cuda_grad_inputs(q, k, v, bias, dout, lse, delta)
     dk, dv = _grad_like(k), _grad_like(v)
-    _launch_bwd(flash_bwd_dkv, "dkv", q, k, v, bias, lse, delta, dout, (dk, dv), causal, sm_scale)
+    _launch(flash_bwd_dkv, "flash_bwd_dkv", (q, k, v, dout, bias, lse, delta, dk, dv),
+            dict(q=q, k=k, v=v, dout=dout, dk=dk, dv=dv), q, k, bias, causal, sm_scale)
     return dk, dv
 
 

@@ -3,7 +3,7 @@
 The kernels run only on the card (tests/test_torch_kernels.py holds them to
 their plain versions there). What is checked here:
 
-(a) `_bwd_variant`: which kernels take each (dtype, head dim) the port's
+(a) `_variant`: which kernels take each (dtype, head dim) the port's
     configs use.
 (b) The tile schedule (blocks own 64 rows and stream the other side in
     32-row tiles): a mirror of the kernels' index arithmetic (the last key
@@ -39,12 +39,12 @@ def test_variant_choice(dtype, head_dim):
     """bf16 with Dh a multiple of 16 up to 128 takes the tensor cores; f32
     (TF32 is off) and Dh = 256 keep the fp32 CUDA-core kernels."""
     want = "tc" if dtype == torch.bfloat16 and head_dim <= 128 else "simt"
-    assert tfa._bwd_variant(dtype, head_dim) == want
+    assert tfa._variant(dtype, head_dim) == want
 
 
 def test_variant_choice_needs_whole_k16_steps():
-    assert tfa._bwd_variant(torch.bfloat16, 24) == "simt"
-    assert tfa._bwd_variant(torch.bfloat16, 48) == "tc"
+    assert tfa._variant(torch.bfloat16, 24) == "simt"
+    assert tfa._variant(torch.bfloat16, 48) == "tc"
 
 
 # ---- (b) the tile schedule -------------------------------------------------

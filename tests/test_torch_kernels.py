@@ -9,9 +9,10 @@ Without a CUDA device every test here skips (the kernels have no CPU mode).
 Tolerances, |kernel − plain| ≤ atol + rtol·|plain|: f32 atol 1e-4
 (summation order only); bf16 atol 1e-2, rtol 2⁻⁶ — two bf16 ulps, since
 both sides round the output (and the plain version its probabilities) to
-bf16. The tensor-core backward also rounds P and dS to bf16 before its
-second products; tests/test_torch_flash_bwd_tc.py shows on the CPU that
-this stays inside the same tolerance.
+bf16. The tensor-core kernels also round P (and the backward dS) to bf16
+before their second products; tests/test_torch_flash_fwd_tc.py and
+tests/test_torch_flash_bwd_tc.py show on the CPU that this stays inside the
+same tolerance.
 """
 import numpy as np
 import pytest
@@ -104,6 +105,125 @@ def test_decode_kernel_matches_plain(cuda, dtype, index, with_bias, Dh):
     assert excess(out, ref, dtype).max().item() <= TOL[dtype][0]
 
 
+# (Tq, S) of the forward's variant tests: one query, serving's header
+# prefill (8, 8) and appends (10 over 28..128), the next window (16, 16),
+# queries right-aligned over a ragged S, the train step's T = 160, and a
+# ragged T past two 64-row blocks
+FWD_SHAPES = [(1, 40), (8, 8), (10, 28), (10, 88), (10, 128), (16, 16), (37, 100), (160, 160), (129, 130)]
+
+
+def _left_pad_bias(B, S, n_pad):
+    """[B, S] f32 bias masking each row's first n_pad[b] keys."""
+    return torch.where(torch.arange(S)[None, :] >= torch.tensor(n_pad)[:, None], 0.0, NEG_BIG).float().cuda()
+
+
+def _check_fwd_against_plain(q, k, v, bias, variant: str):
+    """One forward launch of `variant` against the plain version: out
+    within TOL and lse within 1e-3 on the query rows that see a key; on
+    fully masked (left-pad) rows lse finite and equal to the plain
+    version's (−0.7·f32max in both), which the backward reads as P = 1."""
+    B, H, Tq, Dh = q.shape
+    S = k.shape[2]
+    before = (tfa.flash_fwd.launches, tfa.flash_fwd.tc_launches)
+    out, lse = tfa.flash_fwd(q, k, v, bias)
+    assert (tfa.flash_fwd.launches - before[0], tfa.flash_fwd.tc_launches - before[1]) == (1, int(variant == "tc"))
+    ref, ref_lse = tfa._plain_attention(q, k, v, bias, True, 1.0 / Dh**0.5)
+    torch.cuda.synchronize()
+    rows = torch.ones(B, Tq, dtype=torch.bool, device="cuda") if bias is None else bias[:, S - Tq:] == 0
+    assert excess(out, ref, torch.bfloat16).amax(dim=(1, 3))[rows].max().item() <= TOL[torch.bfloat16][0]
+    assert (lse - ref_lse).abs().amax(dim=1)[rows].max().item() <= 1e-3
+    dead = (~rows)[:, None, :].expand_as(lse)
+    assert torch.isfinite(lse).all()
+    assert torch.equal(lse[dead], ref_lse[dead])
+    assert (lse[dead] == NEG_BIG).all()
+
+
+@pytest.mark.parametrize("variant", ["tc", "simt"])
+@pytest.mark.parametrize("Tq,S", FWD_SHAPES)
+@pytest.mark.parametrize("Dh", [16, 48, 64, 128])
+@pytest.mark.parametrize("padded", [False, True])
+def test_flash_fwd_variants_match_plain(cuda, monkeypatch, variant, Tq, S, Dh, padded):
+    """Each forward variant, forced, in bf16: both block shapes of the
+    tensor-core kernel (Tq ≤ 16: one (b, h) per warp; else 64 rows per
+    block), ragged S past the key tiles, Dh from 16 to 128, and left padding
+    that masks whole query rows."""
+    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim: variant)
+    B, H = 3, 2
+    q, k, v = (_randn(B, H, T, Dh, dtype=torch.bfloat16, seed=i + Tq + S) for i, T in enumerate((Tq, S, S)))
+    bias = _left_pad_bias(B, S, [0, min(3, S - 1), S - 1]) if padded else None
+    _check_fwd_against_plain(q, k, v, bias, variant)
+
+
+@pytest.mark.parametrize("variant", ["tc", "simt"])
+@pytest.mark.parametrize("T,index", [(8, 0), (10, 30), (10, 118), (16, 0), (37, 63)])
+def test_flash_fwd_variants_take_strided_views(cuda, monkeypatch, variant, T, index):
+    """As the trunk calls K1 on a cached append: q a view into the fused
+    [B, T, 3, H, Dh] projection (row stride 3·H·Dh), k/v the filled prefix
+    cache[:, :, :index + T] of a [B, H, T_max, Dh] cache, and the bias row a
+    [:, :S] slice of a [B, T_max] mask with left padding."""
+    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim: variant)
+    B, H, T_max, Dh = 3, 4, 128, 64
+    S = index + T
+    qkv = _randn(B, T, 3, H, Dh, dtype=torch.bfloat16, seed=3)
+    cache_k = _randn(B, H, T_max, Dh, dtype=torch.bfloat16, seed=1)
+    cache_v = _randn(B, H, T_max, Dh, dtype=torch.bfloat16, seed=2)
+    cache_k[:, :, index:S] = qkv[:, :, 1].transpose(1, 2)
+    cache_v[:, :, index:S] = qkv[:, :, 2].transpose(1, 2)
+    q = qkv[:, :, 0].transpose(1, 2)
+    bias = _left_pad_bias(B, T_max, [0, 2, S // 2])[:, :S]
+    _check_fwd_against_plain(q, cache_k[:, :, :S], cache_v[:, :, :S], bias, variant)
+
+
+@pytest.mark.parametrize("variant", ["tc", "simt"])
+@pytest.mark.parametrize("T", [16, 100, 160])
+def test_flash_fwd_variants_take_fused_qkv_views(cuda, monkeypatch, variant, T):
+    """As the trunk calls K1 in training: q, k and v views into one fused
+    [B, T, 3, H, Dh] projection, left-padded."""
+    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim: variant)
+    B, H, Dh = 3, 4, 64
+    qkv = _randn(B, T, 3, H, Dh, dtype=torch.bfloat16, seed=T)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    _check_fwd_against_plain(q, k, v, _left_pad_bias(B, T, [0, 5, T // 2]), variant)
+
+
+@pytest.mark.parametrize("T", [16, 100, 160])
+def test_tc_forward_left_pad_rows_give_finite_gradients(cuda, T):
+    """K1 (tensor cores) → K2/K3 on left-padded bf16 inputs: the forward's
+    lse on fully masked rows is −0.7·f32max, so the backward rebuilds
+    P = 1 there, and with the zero cotangent those rows get, every gradient
+    is finite and within GRAD_TOL of the plain backward."""
+    before = tfa.flash_fwd.tc_launches
+    q, k, v, bias, out, lse, dout = _bwd_case(4, 3, T, T, 64, torch.bfloat16, True, seed=T)
+    assert tfa.flash_fwd.tc_launches == before + 1
+    dead = (bias == NEG_BIG)[:, None, :].expand_as(lse)  # Tq = S: a row is masked with its own key
+    assert dead.any() and (lse[dead] == NEG_BIG).all()
+    delta = tfa._delta(out, dout)
+    grads = (tfa.flash_bwd_dq(q, k, v, bias, lse, delta, dout), *tfa.flash_bwd_dkv(q, k, v, bias, lse, delta, dout))
+    scale = 1.0 / 64**0.5
+    refs = (tfa._plain_bwd_dq(q, k, v, bias, lse, delta, dout, True, scale),
+            *tfa._plain_bwd_dkv(q, k, v, bias, lse, delta, dout, True, scale))
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, refs):
+        assert torch.isfinite(got.float()).all()
+        assert _grad_excess(got, ref, torch.bfloat16).max().item() <= GRAD_TOL[torch.bfloat16][0]
+
+
+def test_flash_fwd_tc_refuses_misaligned_inputs(cuda):
+    """The tensor-core forward copies 16-byte rows: a bf16 q that starts 2
+    bytes into its buffer, or whose rows are 68 elements apart, is refused
+    before any launch."""
+    B, H, T, Dh = 1, 2, 16, 64
+    k, v = (_randn(B, H, T, Dh, dtype=torch.bfloat16, seed=s) for s in (1, 2))
+    shifted = _randn(B * H * T * Dh + 1, dtype=torch.bfloat16, seed=4)[1:].view(B, H, T, Dh)
+    wide_rows = _randn(B, H, T, Dh + 4, dtype=torch.bfloat16, seed=5)[..., :Dh]
+    assert tfa._variant(torch.bfloat16, Dh) == "tc"
+    before = tfa.flash_fwd.launches
+    for q in (shifted, wide_rows):
+        with pytest.raises(ValueError):
+            tfa.flash_fwd(q, k, v)
+    assert tfa.flash_fwd.launches == before
+
+
 def _bwd_case(B, H, Tq, S, Dh, dtype, padded, seed):
     """Inputs of one backward: q/k/v as views into a fused [B, T, 3, H, Dh]
     projection (as the trunk passes them), the forward's out and lse, and a
@@ -168,7 +288,7 @@ def _check_bwd_against_plain(B, H, Tq, S, Dh, dtype, padded, seed, tc: bool):
 def test_flash_bwd_variants_match_plain(cuda, monkeypatch, variant, B, H, Tq, S, Dh, padded):
     """Each backward variant, forced, in bf16: ragged T (not a multiple of
     the 64-row tile), right-aligned queries, Dh from 16 to 128."""
-    monkeypatch.setattr(tfa, "_bwd_variant", lambda dtype, head_dim: variant)
+    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim: variant)
     _check_bwd_against_plain(B, H, Tq, S, Dh, torch.bfloat16, padded, seed=Tq + Dh, tc=variant == "tc")
 
 
@@ -230,7 +350,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     lse, delta = torch.zeros(B, H, T, device="cuda"), torch.zeros(B, H, T, device="cuda")
     shifted = _randn(B * H * T * Dh + 1, dtype=torch.bfloat16, seed=4)[1:].view(B, H, T, Dh)
     wide_rows = _randn(B, H, T, Dh + 4, dtype=torch.bfloat16, seed=5)[..., :Dh]
-    assert tfa._bwd_variant(torch.bfloat16, Dh) == "tc"
+    assert tfa._variant(torch.bfloat16, Dh) == "tc"
     for q in (shifted, wide_rows):
         with pytest.raises(ValueError):
             tfa.flash_bwd_dq(q, k, v, None, lse, delta, dout)
