@@ -19,7 +19,12 @@ Phases, each of which exits non-zero on failure:
    equal to the plain version's −0.7·f32max), the variant each launch
    took, and the kernel, plain and library
    (scaled_dot_product_attention, forward or backward, a yardstick the port
-   never calls) times;
+   never calls) times; the backward cases include the online train step's
+   (B=64, H=12, T=128) and the gate's (B=512, H=4, T=128) shapes;
+2p. K1 and K4 against their plain versions at the later paths' shapes,
+   bf16: the online rollout (B=256, H=12) and the gate's evals (B=512,
+   H=4) on cache views, the text env's and LMServer's left-padded prefill
+   and decode with bias (B=8 and 4, prompts of 128 and 48 tokens);
 3. serving at full width: value-guided Wordle serving with GPT-2-small
    (vocab 50,257 padded to 50,304), bf16 weights from a seed, two trunks,
    twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and five
@@ -37,6 +42,29 @@ Phases, each of which exits non-zero on failure:
    variant) and a finite loss checked, then one more under
    torch.profiler; then three BC steps on the same trunk (12/12/12
    launches, the same check);
+3o. on-device online ILQL at full width (`loops/online_device.py::
+   online_ilql_wordle`): GPT-2-small with f32 parameters and bf16
+   activations, twin MLP Q heads and a V head, a separate target base,
+   AdamW, beta=32, `OnlineDeviceConfig()` (4 rounds of a B=256 one-trunk
+   guided rollout on the live modules, then four B=64, T=128 train steps):
+   per round the rollout's launches (84 flash_fwd, 720 decode_attn) and
+   each step's (24 / 12 / 12), all on the tensor-core variants, the
+   rollout's invariants, a finite loss, base weights that move between
+   rounds, the rollout and train wall time per round and the peak memory;
+   then the rollout and the round's train steps once more, each under
+   torch.profiler;
+3g. the port's Wordle ILQL gate (`lmrl_gym_torch/scripts/
+   wordle_ilql_gate.py`) at its own width (d256, L4, H4, byte vocab 259
+   padded to 320) and a cut budget (100 BC, 100 %BC, 100 ILQL steps, eval
+   batch 512, no OptimalPolicy bound): every stage runs, its launch counts
+   are the budget's, and every return is finite and in [-6, 0];
+3s. legal-set and text-env serving on the phase-3 weights: a
+   `GenerationPolicy` over `ValueGuidedServer.generate_from_strs_legal`
+   (the 400 vocab words as proposals) plays 8 `ReformatWordleEnv` games
+   through `envs/base.py`'s interaction loop — every action a vocab word,
+   every game over within 6 turns, 24 flash_fwd (left-padded, with bias)
+   and 240 decode_attn launches per turn; then `LMServer.generate_from_strs`
+   answers 4 prompts;
 4. the same full-width serving weights at B=4 on the card (kernels, bf16)
    against the CPU (plain path, f32): header prefill plus 3 decode steps;
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
@@ -62,6 +90,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -76,10 +105,13 @@ from lmrl_gym_torch.algos.ilql import (
     init_ilql_state,
     make_ilql_train_step,
 )
-from lmrl_gym_torch.algos.value_policy import ValueGuidedServer, ValueRLParams
+from lmrl_gym_torch.algos.value_policy import GenerationPolicy, LMServer, ValueGuidedServer, ValueRLParams
 from lmrl_gym_torch.core.optimizer import TrainState, adamw
+from lmrl_gym_torch.envs.base import text_env_eval
+from lmrl_gym_torch.envs.wordle.env import ReformatWordleEnv, WordleEnv
 from lmrl_gym_torch.envs.wordle.vector import N_TRIES, WordleVectorEnv, WordleVocab
-from lmrl_gym_torch.loops import actor
+from lmrl_gym_torch.loops import actor, online_device
+from lmrl_gym_torch.loops.online_device import OnlineDeviceConfig, online_ilql_wordle, wordle_rollout_to_ilql_batch
 from lmrl_gym_torch.models.config import gpt2_small
 from lmrl_gym_torch.models.generation import SamplingConfig
 from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
@@ -99,6 +131,7 @@ from lmrl_gym_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_fwd,
 )
+from lmrl_gym_torch.scripts import wordle_ilql_gate
 from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -274,26 +307,46 @@ def phase_device() -> str:
     return card
 
 
-def _flash_inputs(Tq, S, dtype, padded, gen):
-    q = torch.randn(B, H, Tq, DH, device="cuda", generator=gen).to(dtype)
-    k = torch.randn(B, H, S, DH, device="cuda", generator=gen).to(dtype)
-    v = torch.randn(B, H, S, DH, device="cuda", generator=gen).to(dtype)
+def _flash_inputs(Tq, S, dtype, padded, gen, b=B, h=H, t_max=None):
+    """q [b,h,Tq,DH], k/v [b,h,S,DH] and a left-pad bias [b,S]; with
+    `t_max`, as the cached trunk passes them: q a view into the fused
+    [b,Tq,3·h·DH] projection, k/v the filled prefix of a [b,h,t_max,DH]
+    cache and the bias the prefix of a [b,t_max] one."""
+    if t_max is None:
+        q = torch.randn(b, h, Tq, DH, device="cuda", generator=gen).to(dtype)
+    else:
+        q = torch.randn(b, Tq, 3, h, DH, device="cuda", generator=gen).to(dtype)[:, :, 0].transpose(1, 2)
+    k = torch.randn(b, h, t_max or S, DH, device="cuda", generator=gen).to(dtype)[:, :, :S]
+    v = torch.randn(b, h, t_max or S, DH, device="cuda", generator=gen).to(dtype)[:, :, :S]
     bias = None
     if padded:
-        n_pad = torch.randint(0, S, (B,), device="cuda", generator=gen)
-        bias = torch.where(torch.arange(S, device="cuda")[None, :] >= n_pad[:, None], 0.0, _NEG_BIG).float()
+        n_pad = torch.randint(0, S, (b,), device="cuda", generator=gen)
+        pos = torch.arange(t_max or S, device="cuda")[None, :]
+        bias = torch.where(pos >= n_pad[:, None], 0.0, _NEG_BIG).float()[:, :S]
     return q, k, v, bias
 
 
-def _decode_inputs(index, dtype, padded, gen):
-    q = torch.randn(B, H, 1, DH, device="cuda", generator=gen).to(dtype)
-    k = torch.randn(B, H, T_MAX, DH, device="cuda", generator=gen).to(dtype)
-    v = torch.randn(B, H, T_MAX, DH, device="cuda", generator=gen).to(dtype)
+def _decode_inputs(index, dtype, padded, gen, b=B, h=H, t_max=T_MAX, max_pad=None):
+    q = torch.randn(b, h, 1, DH, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, h, t_max, DH, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, h, t_max, DH, device="cuda", generator=gen).to(dtype)
     bias = None
-    if padded:
-        n_pad = torch.randint(0, index + 1, (B,), device="cuda", generator=gen)  # key `index` stays visible
-        bias = torch.where(torch.arange(T_MAX, device="cuda")[None, :] >= n_pad[:, None], 0.0, _NEG_BIG).float()
+    if padded:  # key `index` stays visible
+        n_pad = torch.randint(0, min(index, max_pad or index) + 1, (b,), device="cuda", generator=gen)
+        bias = torch.where(torch.arange(t_max, device="cuda")[None, :] >= n_pad[:, None], 0.0, _NEG_BIG).float()
     return q, k, v, bias
+
+
+def _check_decode(q, k, v, index, bias, dtype, label: str) -> float:
+    """decode_attention against _plain_decode_attention within TOL; returns
+    the max abs error."""
+    scale = 1.0 / q.shape[-1]**0.5
+    out = decode_attention(q, k, v, index, bias, scale)
+    ref = _plain_decode_attention(q, k, v, index, bias, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(excess(out, ref, dtype).max().item() <= TOL[dtype][0], f"decode_attn {label} {dtype}: max abs err {err}")
+    return err
 
 
 def _check_fwd(q, k, v, bias, rows, dtype, label: str) -> tuple:
@@ -344,12 +397,7 @@ def phase_kernel_checks() -> dict:
         for index in (8, 67, 127):
             for padded in (False, True):
                 q, k, v, bias = _decode_inputs(index, dtype, padded, gen)
-                out = decode_attention(q, k, v, index, bias, scale)
-                ref = _plain_decode_attention(q, k, v, index, bias, scale)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                over = excess(out, ref, dtype).max().item()
-                check(over <= TOL[dtype][0], f"decode_attn index={index} bias={padded} {dtype}: max abs err {err}")
+                err = _check_decode(q, k, v, index, bias, dtype, f"index={index} bias={padded}")
                 errs["decode_attn"] = max(errs["decode_attn"], err)
                 n = index + 1
                 kp, vp = k[:, :, :n], v[:, :, :n]
@@ -388,12 +436,13 @@ def _tc_counts():
 
 
 # phase 2's backward cases: (b, h, dh, Tq, S, left-padded); the training
-# shapes first, then a ragged T (not a multiple of the 64-row tile) and
-# LLaMA's head width
+# shapes first, then the online train step's (B=64, T=128) and the gate's
+# (d256 H4: B=512, H=4, T=128), a ragged T (not a multiple of the 64-row
+# tile) and LLaMA's head width
 BWD_CASES = (
     (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, False), (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
-    (TRAIN_B, H, DH, 96, TRAIN_T, False), (TRAIN_B, H, DH, 100, 100, True), (TRAIN_B, H, DH, 37, 100, False),
-    (4, 32, 128, 160, 160, True),
+    (TRAIN_B, H, DH, 96, TRAIN_T, False), (64, H, DH, T_MAX, T_MAX, False), (512, 4, DH, T_MAX, T_MAX, False),
+    (TRAIN_B, H, DH, 100, 100, True), (TRAIN_B, H, DH, 37, 100, False), (4, 32, 128, 160, 160, True),
 )
 
 
@@ -448,6 +497,48 @@ def phase_bwd_checks() -> dict:
             log(f"check flash_bwd {shape} offset={S - Tq} left_pad={padded} {str(dtype)[6:]}: "
                 + " ".join(line) + f" (atol, rtol fwd {TOL[dtype]}, bwd {GRAD_TOL[dtype]}) dq_ms={t_dq:.4f} dkv_ms={t_dkv:.4f} "
                 f"plain_dq_ms={t_pdq:.4f} plain_dkv_ms={t_pdkv:.4f} library_bwd_ms={t_lib:.4f}")
+    return errs
+
+
+def phase_path_checks() -> dict:
+    """K1 and K4 against their plain versions at the shapes the later paths
+    give them, bf16 (their dtype, so the tensor-core K1): the online
+    rollout (B=256, H=12) and the gate's evals (B=512, H=4) — K1 at
+    Tq=8 over S=8 and Tq=10 over S=68 and 128 of a T_MAX cache, K4 at
+    index 8, 67 and 127; the text env's legal-set serving (B=8, prompts
+    left-padded to T_MAX, a cache of T_MAX + 10) and LMServer's (B=4,
+    prompts padded to 48, a cache of 58) — K1 on the left-padded prefill
+    with bias, K4 with bias at the first, a middle and the last of the 10
+    decode slots. The online and gate train steps' K1-K3 shapes are in
+    BWD_CASES."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dtype = torch.bfloat16
+    errs = {"flash_fwd": 0.0, "decode_attn": 0.0}
+    for b, h in ((256, H), (512, 4)):
+        for Tq, S in ((8, 8), (10, 68), (10, T_MAX)):
+            q, k, v, bias = _flash_inputs(Tq, S, dtype, False, gen, b, h, t_max=T_MAX)
+            rows = torch.ones(b, Tq, dtype=torch.bool, device="cuda")
+            err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"B={b} H={h} Tq={Tq} S={S}")
+            errs["flash_fwd"] = max(errs["flash_fwd"], err)
+            log(f"check flash_fwd B={b} H={h} Tq={Tq} S={S} (cache view) bf16: max_abs_err={err:.3e} "
+                f"(atol, rtol {TOL[dtype]}) lse_err={lse_err:.3e}")
+        for index in (8, 67, 127):
+            q, k, v, bias = _decode_inputs(index, dtype, False, gen, b, h)
+            err = _check_decode(q, k, v, index, bias, dtype, f"B={b} H={h} index={index}")
+            errs["decode_attn"] = max(errs["decode_attn"], err)
+            log(f"check decode_attn B={b} H={h} T_max={T_MAX} index={index} bf16: max_abs_err={err:.3e}")
+    for b, prompt in ((8, T_MAX), (4, 48)):
+        t_max = prompt + 10
+        q, k, v, bias = _flash_inputs(prompt, prompt, dtype, True, gen, b, H, t_max=t_max)
+        err, lse_err = _check_fwd(q, k, v, bias, bias == 0, dtype, f"B={b} prefill {prompt} left-padded")
+        errs["flash_fwd"] = max(errs["flash_fwd"], err)
+        log(f"check flash_fwd B={b} H={H} prefill Tq=S={prompt} of a {t_max} cache, left-padded bf16: "
+            f"max_abs_err={err:.3e} (atol, rtol {TOL[dtype]}) lse_err={lse_err:.3e}")
+        for index in (prompt, prompt + 5, prompt + 9):
+            q, k, v, bias = _decode_inputs(index, dtype, True, gen, b, H, t_max=t_max, max_pad=prompt - 1)
+            err = _check_decode(q, k, v, index, bias, dtype, f"B={b} T_max={t_max} index={index} left-padded")
+            errs["decode_attn"] = max(errs["decode_attn"], err)
+            log(f"check decode_attn B={b} H={H} T_max={t_max} index={index} left-padded bf16: max_abs_err={err:.3e}")
     return errs
 
 
@@ -570,9 +661,26 @@ def _train_counts():
     return flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches
 
 
-def _check_rollout(out, env) -> None:
+COUNT_NAMES = ("flash_fwd", "flash_fwd_tc", "decode_attn", "flash_bwd_dq", "flash_bwd_dq_tc", "flash_bwd_dkv",
+               "flash_bwd_dkv_tc")
+
+
+def _all_counts() -> tuple:
+    """Every launch counter, in COUNT_NAMES' order (K1 and its tensor-core
+    share, K4, K2 and its share, K3 and its share)."""
+    return (flash_fwd.launches, flash_fwd.tc_launches, decode_attention.launches, flash_bwd_dq.launches,
+            flash_bwd_dq.tc_launches, flash_bwd_dkv.launches, flash_bwd_dkv.tc_launches)
+
+
+def _fmt_counts(counts: tuple) -> str:
+    return " ".join(f"{n}={c}" for n, c in zip(COUNT_NAMES, counts))
+
+
+def _check_rollout(out, env, batch: int = B, constrained: bool = True) -> None:
+    """The rollout's invariants; a `constrained` decode also forces the
+    action separators and makes every live guess a vocab word."""
     live = out.turn_live
-    check(out.tokens.shape == (B, actor.EPISODE_LEN), f"tokens shape {tuple(out.tokens.shape)}")
+    check(out.tokens.shape == (batch, actor.EPISODE_LEN), f"tokens shape {tuple(out.tokens.shape)}")
     check(bool((live[:, :-1] >= live[:, 1:]).all()), "turn liveness is not monotone")
     check(bool(live[:, 0].all()), "a game was done before its first turn")
     tr = out.turn_reward
@@ -585,9 +693,11 @@ def _check_rollout(out, env) -> None:
     for t in range(N_TRIES):
         off = len(actor.HEADER) + t * actor.TURN_LEN
         act, obs = toks[:, off: off + 10], toks[:, off + 10: off + 20]
-        check(bool((act[:, 1:9:2] == 32).all() and (act[:, 9] == 10).all()), f"turn {t}: action separators")
         check(bool((obs[:, 1:9:2] == 32).all() and (obs[:, 9] == 10).all()), f"turn {t}: observation separators")
         check(bool(torch.isin(obs[:, 0:10:2], torch.tensor([98, 121, 103])).all()), f"turn {t}: feedback letters")
+        if not constrained:
+            continue
+        check(bool((act[:, 1:9:2] == 32).all() and (act[:, 9] == 10).all()), f"turn {t}: action separators")
         for b in torch.nonzero(live[:, t].cpu()).flatten().tolist():
             word = bytes(act[b, 0:10:2].tolist()).decode()
             check(word in words, f"turn {t} row {b}: constrained guess {word!r} is not a vocab word")
@@ -709,7 +819,202 @@ def phase_slice() -> dict:
     for p, a in zip(prompts, answers):
         log(f"  prompt {p!r} -> {a!r}")
     return {"flash_fwd": 7 * config.num_layers * 2, "flash_fwd_tc": rollout_tc, "decode_attn": 60 * config.num_layers * 2,
-            "base": base, "config": config}
+            "base": base, "config": config, "serving": ValueRLParams(pi_beta, base, q1, q2, None)}
+
+
+@contextlib.contextmanager
+def traced_online_round(record: list):
+    """Wraps the calls `online_ilql_wordle` makes each round — the rollout
+    and every train step — so each records its launch counts (set to 0
+    just before the call, read just after it) and its wall time; the
+    rollout also keeps its output and a copy of the trunk's final norm
+    weights at the round's start."""
+    rollout_wordle, make_step = actor.rollout_wordle, online_device.make_ilql_train_step
+
+    def rollout(env, step_fn, params, *args, **kwargs):
+        weights = params["base"].ln_f.weight.detach().clone()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = rollout_wordle(env, step_fn, params, *args, **kwargs)
+        torch.cuda.synchronize()
+        record.append(dict(kind="rollout", s=time.perf_counter() - t0, counts=_all_counts(), out=out, weights=weights))
+        return out
+
+    def make(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def traced(*step_args, **step_kwargs):
+            _reset_counts()
+            t0 = time.perf_counter()
+            res = step(*step_args, **step_kwargs)
+            torch.cuda.synchronize()
+            record.append(dict(kind="step", s=time.perf_counter() - t0, counts=_all_counts(), loss=res[1].item()))
+            return res
+
+        return traced
+
+    actor.rollout_wordle, online_device.make_ilql_train_step = rollout, make
+    try:
+        yield
+    finally:
+        actor.rollout_wordle, online_device.make_ilql_train_step = rollout_wordle, make_step
+
+
+def phase_online(config) -> dict:
+    """Phase 3o: `online_ilql_wordle` at full width with its default config."""
+    L = config.num_layers
+    core = LMCore(config)
+    t0 = time.perf_counter()
+    base, q1, q2, v = _train_modules(config, "cuda")
+    ilql_config = ILQLConfig(beta=32.0)
+    state = init_ilql_state(base, q1, q2, v, adamw(1e-4), adamw(1e-3), ilql_config)
+    ocfg = OnlineDeviceConfig()
+    env = WordleVectorEnv(WordleVocab.from_file())
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    torch.cuda.synchronize()
+    n_steps = ocfg.rollout_batch // ocfg.train_bsize * ocfg.epochs_per_round
+    log(f"online setup (gpt2-small f32 params, bf16 activations, twin MLP Q heads + V head, separate target base, "
+        f"beta=32, {ocfg}): {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    record: list = []
+    t0 = time.perf_counter()
+    with traced_online_round(record):
+        state, history = online_ilql_wordle(core, state, env, ilql_config, ocfg, generator=gen)
+    total = time.perf_counter() - t0
+    check(len(record) == ocfg.n_rounds * (1 + n_steps) and len(history) == ocfg.n_rounds,
+          f"online: {len(record)} traced calls over {len(history)} rounds")
+    want_roll = (7 * L, 7 * L, 60 * L, 0, 0, 0, 0)  # one trunk: 7 multi-token forwards, 60 decode steps
+    want_step = (2 * L, 2 * L, 0, L, L, L, L)  # trained and target forwards (no next window), one backward
+    roll_s, train_s = [], []
+    for r in range(ocfg.n_rounds):
+        roll, steps = record[r * (1 + n_steps)], record[r * (1 + n_steps) + 1: (r + 1) * (1 + n_steps)]
+        check(roll["kind"] == "rollout" and all(st["kind"] == "step" for st in steps), f"online round {r}: call order")
+        check(roll["counts"] == want_roll, f"online round {r} rollout: {_fmt_counts(roll['counts'])}, want {want_roll}")
+        _check_rollout(roll["out"], env, ocfg.rollout_batch, constrained=False)
+        for i, st in enumerate(steps):
+            check(st["counts"] == want_step, f"online round {r} step {i}: {_fmt_counts(st['counts'])}, want {want_step}")
+            check(math.isfinite(st["loss"]), f"online round {r} step {i}: loss {st['loss']}")
+        if r:
+            check(not torch.equal(record[(r - 1) * (1 + n_steps)]["weights"], roll["weights"]),
+                  f"online round {r}: the trunk's weights did not move since round {r - 1}")
+        roll_s.append(roll["s"])
+        train_s.append(sum(st["s"] for st in steps))
+        m = history[r]
+        check(math.isfinite(m["loss"]), f"online round {r}: loss {m['loss']}")
+        log(f"online round {r}: rollout B={ocfg.rollout_batch} {roll['s']:.3f} s ({_fmt_counts(roll['counts'])}), "
+            f"train {train_s[-1]:.3f} s for {n_steps} steps B={ocfg.train_bsize} T={actor.EPISODE_LEN} "
+            f"(per step {_fmt_counts(steps[0]['counts'])}; losses {[round(st['loss'], 4) for st in steps]}), "
+            f"return {m['mean_episode_reward']:.3f} win {m['win_rate']:.3f} turns {m['mean_turns']:.2f}")
+    log(f"online ILQL: {ocfg.n_rounds} rounds in {total:.3f} s; per round rollout {sum(roll_s) / len(roll_s):.3f} s, "
+        f"train {sum(train_s) / len(train_s):.3f} s; peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+
+    # the same two calls once more on the live modules, each under the profiler
+    step_fn, carry0 = actor.make_value_guided_step_fn(core, ocfg.rollout_batch, two_trunks=False, twin_q=True,
+                                                      beta=ilql_config.beta)
+    policy = {"base": state.base.params, "q1": state.q1_head.params, "q2": state.q2_head.params}
+    profile_run("online rollout", lambda: actor.rollout_wordle(env, step_fn, policy, carry0, ocfg.rollout_batch,
+                                                               generator=gen), sorted(roll_s)[len(roll_s) // 2])
+    batch = wordle_rollout_to_ilql_batch(actor.rollout_wordle(env, step_fn, policy, carry0, ocfg.rollout_batch,
+                                                              generator=gen))
+    step = make_ilql_train_step(core, ilql_config, ocfg.pad_token_id)
+    mb = ocfg.train_bsize
+
+    def train_round():
+        for i in range(n_steps):
+            step(state, ILQLBatch(*(None if x is None else x[i * mb: (i + 1) * mb] for x in batch)))
+
+    profile_run("online train steps (one round)", train_round, sorted(train_s)[len(train_s) // 2])
+    # the launches the last round recorded (every round's were checked above)
+    last = record[-(1 + n_steps):]
+    per_round = tuple(sum(c) for c in zip(*(call["counts"] for call in last)))
+    out = {f"{name}_online_round": n for name, n in zip(COUNT_NAMES, per_round)}
+    out.update({f"{name}_online_step": n for name, n in zip(COUNT_NAMES, last[-1]["counts"])})
+    return out
+
+
+GATE_ARGS = ["--bc-steps", "100", "--pbc-steps", "100", "--ilql-steps", "100", "--eval-every", "100",
+             "--eval-batch", "512", "--optimal-episodes", "0"]
+GATE_LAYERS = 4  # the gate's default --layers
+GATE_LM_EVALS, GATE_GUIDED_EVALS = 4, 3  # BC and %BC, sampled and greedy; ILQL live, target and greedy
+
+
+def phase_gate() -> dict:
+    """Phase 3g: the port's Wordle ILQL gate at its own width and a cut budget."""
+    L = GATE_LAYERS
+    n_bc, n_ilql = 200, 100
+    fwd = n_bc * L + n_ilql * 2 * L + GATE_LM_EVALS * 7 * L + GATE_GUIDED_EVALS * 2 * 7 * L
+    dec = GATE_LM_EVALS * 60 * L + GATE_GUIDED_EVALS * 2 * 60 * L
+    bwd = (n_bc + n_ilql) * L
+    want = (fwd, fwd, dec, bwd, bwd, bwd, bwd)
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = wordle_ilql_gate.main(GATE_ARGS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _all_counts()
+    check(counts == want, f"gate launched {_fmt_counts(counts)}, want {want}")
+    returns = {k: v for k, v in result.items() if "return" in k and v is not None}
+    returns.update({f"curve_{c['step']}": c["ret"] for c in result["curve"]})
+    for k, v in returns.items():
+        check(math.isfinite(v) and -6.0 <= v <= 0.0, f"gate {k} = {v}, want a finite return in [-6, 0]")
+    log(f"gate ({' '.join(GATE_ARGS)}): {dt:.1f} s, {_fmt_counts(counts)}; "
+        + " ".join(f"{k}={v:.3f}" for k, v in result.items() if isinstance(v, float)))
+    out = {f"{name}_gate": n for name, n in zip(COUNT_NAMES, counts)}
+    out["gate_s"] = dt
+    return out
+
+
+def phase_text_env(serving: ValueRLParams, config) -> dict:
+    """Phase 3s: legal-set serving through the host text env, then LMServer."""
+    L = config.num_layers
+    core = LMCore(config)
+    tok = ByteTokenizer()
+    server = ValueGuidedServer(core, tok, beta=32.0)
+    vocab = WordleVocab.from_file()
+    proposals = [" ".join(w) + "\n" for w in vocab.words]
+    sampling = SamplingConfig(max_new_tokens=10, eos_token_id=10, pad_token_id=256)
+    calls: list = []
+
+    def generate_batch(prompts, generator):
+        calls.append(len(prompts))
+        return server.generate_from_strs_legal(serving, prompts, [proposals] * len(prompts), actor.EPISODE_LEN,
+                                               sampling, generator)
+
+    policy = GenerationPolicy(generate_batch, torch.Generator(device="cuda").manual_seed(11))
+    env = ReformatWordleEnv(WordleEnv(vocab))
+    _reset_counts()
+    t0 = time.perf_counter()
+    interactions, summary = text_env_eval(env, policy, n_rollouts=8, seed_generator=iter(range(8)), bsize=8)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, n = _all_counts(), len(calls)
+    want = (2 * L * n, 2 * L * n, 20 * L * n, 0, 0, 0, 0)  # per turn: two trunks' prefill and 10 decode steps
+    check(counts == want, f"text env: {_fmt_counts(counts)} over {n} turns, want {want}")
+    check(len(interactions) == 8, f"text env: {len(interactions)} games")
+    legal = set(proposals)
+    for g, game in enumerate(interactions):
+        check(1 <= len(game) <= N_TRIES and game[-1].done, f"text env game {g}: {len(game)} turns, done={game[-1].done}")
+        for tr in game:
+            action = tr.post_action_history[-1]
+            check(action.is_action and action.text in legal, f"text env game {g}: action {action.text!r} is not a vocab word")
+    log(f"text env: 8 ReformatWordleEnv games in {dt:.3f} s over {n} policy turns (batches {calls}), "
+        f"{_fmt_counts(counts)}; return mean {summary['reward']['mean']:.3f} min {summary['reward']['min']:.1f} "
+        f"max {summary['reward']['max']:.1f}, length mean {summary['length']['mean']:.2f}")
+    log(f"  game 0: {' | '.join(tr.post_action_history[-1].text.strip() for tr in interactions[0])}")
+    per_turn = {f"{name}_text_env_turn": c // n for name, c in zip(COUNT_NAMES, counts) if c}
+
+    lm = LMServer(core, tok)
+    prompts = ["Wordle:\n", "Wordle:\nc r a n e\nb b y b g\n", "Wordle:\ns l a t e\ng b b b y\n", "hello"]
+    _reset_counts()
+    t0 = time.perf_counter()
+    answers = lm.generate_from_strs(serving.base, prompts, 48,
+                                    SamplingConfig(max_new_tokens=10, greedy=True, eos_token_id=10, pad_token_id=256))
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    check(len(answers) == len(prompts) and all(isinstance(a, str) for a in answers), "LMServer answers")
+    check(counts == (L, L, 10 * L, 0, 0, 0, 0), f"LMServer launched {_fmt_counts(counts)}")
+    log(f"LMServer: {len(answers)} answers in {time.perf_counter() - t0:.3f} s, {_fmt_counts(counts)}: {answers}")
+    return per_turn
 
 
 def phase_card_vs_cpu(base, config) -> float:
@@ -894,12 +1199,16 @@ def main() -> int:
     try:
         card = phase_device()
         errs = phase_kernel_checks()
-        for name, err in phase_bwd_checks().items():
-            errs[name] = max(errs.get(name, 0.0), err)
+        for phase in (phase_bwd_checks, phase_path_checks):
+            for name, err in phase().items():
+                errs[name] = max(errs.get(name, 0.0), err)
         shapes = phase_main_path_shapes()
         shapes.update(phase_train_shapes())
         launches = phase_slice()
         launches.update(phase_train(launches["config"]))
+        launches.update(phase_online(launches["config"]))
+        launches.update(phase_gate())
+        launches.update(phase_text_env(launches["serving"], launches["config"]))
         phase_card_vs_cpu(launches["base"], launches["config"])
         phase_train_card_vs_cpu(launches["config"])
     except SmokeFailure as e:
@@ -943,6 +1252,13 @@ def main() -> int:
         name = entry["name"]
         entry.update(variant="tc", tc_launches=launches[f"{name}_tc"], delta_ms=shapes[name]["delta_ms"],
                      pair_plus_delta_ms=shapes[name]["pair_plus_delta_ms"])
+    # each kernel's launches on the later paths
+    for entry in kernels:
+        for path in ("online_round", "online_step", "gate", "text_env_turn"):
+            if f"{entry['name']}_{path}" in launches:
+                entry[f"launches_{path}"] = launches[f"{entry['name']}_{path}"]
+            if f"{entry['name']}_tc_{path}" in launches:
+                entry[f"tc_launches_{path}"] = launches[f"{entry['name']}_tc_{path}"]
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
-"""Serving path: value-guided decoding. The port of
-`lmrl_gym_tpu/algos/value_policy.py::ValueGuidedServer`.
+"""Serving path: value-guided and plain-LM decoding, and the text policy
+over them. The port of `lmrl_gym_tpu/algos/value_policy.py`
+(`ValueGuidedServer`, `LMServer`, `GenerationPolicy`).
 
 `ValueGuidedServer.generate` decodes with logits = π_β + β·min(q1,q2)
 (the reference's value_rl_base/gpt2/generation.py:36-121): both trunks run
 inside one decode loop (models/generation.py) with a (π_β cache, value
 cache) carry. `share_trunk=True` runs ONE trunk and applies the Q heads to
-its hidden states.
+its hidden states. `generate_legal` masks the same decode to a per-row
+legal proposal set (`models/generation.py::generate_constrained`).
+`GenerationPolicy` turns any `generate_batch(prompts, generator)` into a
+`BatchedTextPolicy` for the host text envs (`envs/base.py`).
 
 In the port, parameters live in modules: `ValueRLParams` carries the trunk
 `Transformer`s and the head modules themselves, so the server needs no
@@ -15,15 +19,43 @@ eager PyTorch.
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from lmrl_gym_torch.core.blocking import BlockingStrategy, Padding, Truncation, block_sequences
-from lmrl_gym_torch.models.generation import SamplingConfig, generate
+from lmrl_gym_torch.core.blocking import (
+    BlockingStrategy,
+    Padding,
+    Truncation,
+    block_sequences,
+    strip_prompt_from_completion,
+)
+from lmrl_gym_torch.envs.base import BatchedTextPolicy
+from lmrl_gym_torch.models.generation import SamplingConfig, generate, generate_constrained
 from lmrl_gym_torch.models.interface import LMCore, pad_mask_to, cached_positions
 from lmrl_gym_torch.models.transformer import KVCache, mask_pad_logits
+from lmrl_gym_torch.text.frames import Text, TextHistory, text_history_to_str
+
+
+def _encode_prompts(tok, prompts: Sequence[str], max_input_length: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prompts → LEFT-padded (truncated from the left) ids and their mask."""
+    ids = block_sequences(
+        [tok.encode(p) for p in prompts],
+        tok.pad_token_id,
+        np.int64,
+        BlockingStrategy(Padding.LEFT, Truncation.LEFT, max_input_length),
+    )
+    ids = torch.from_numpy(ids).to(device)
+    return ids, (ids != tok.pad_token_id).to(torch.int32)
+
+
+def _decode(tok, tokens: torch.Tensor, token_mask: torch.Tensor) -> List[str]:
+    return [
+        tok.decode([int(t) for t, m in zip(row, mrow) if m])
+        for row, mrow in zip(tokens.tolist(), token_mask.tolist())
+    ]
 
 
 class ValueRLParams(NamedTuple):
@@ -101,17 +133,124 @@ class ValueGuidedServer:
         sampling: SamplingConfig,
         generator: Optional[torch.Generator] = None,
     ) -> List[str]:
-        tok = self.tokenizer
-        ids = block_sequences(
-            [tok.encode(p) for p in prompts],
-            tok.pad_token_id,
-            np.int64,
-            BlockingStrategy(Padding.LEFT, Truncation.LEFT, max_input_length),
-        )
-        ids = torch.from_numpy(ids).to(self.core.device)
-        mask = (ids != tok.pad_token_id).to(torch.int32)
+        ids, mask = _encode_prompts(self.tokenizer, prompts, max_input_length, self.core.device)
         tokens, token_mask = self.generate(params, ids, mask, sampling, generator)
-        return [
-            tok.decode([int(t) for t, m in zip(row, mrow) if m])
-            for row, mrow in zip(tokens.tolist(), token_mask.tolist())
-        ]
+        return _decode(self.tokenizer, tokens, token_mask)
+
+    def generate_legal(
+        self,
+        params: ValueRLParams,
+        prompt_ids: torch.Tensor,
+        prompt_mask: torch.Tensor,
+        sampling: SamplingConfig,
+        candidates: torch.Tensor,  # [B, P, L]
+        candidate_mask: torch.Tensor,  # [B, P]
+        generator: Optional[torch.Generator] = None,
+        gumbel: Optional[torch.Tensor] = None,  # [max_new_tokens, B, V] replayed noise
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Guided decode constrained to a per-row legal proposal set."""
+        B, T = prompt_ids.shape
+        logits_fn, carry = self._make_guided_logits_fn(params, T + sampling.max_new_tokens, B)
+        return generate_constrained(
+            logits_fn, carry, prompt_ids, prompt_mask, sampling, candidates, candidate_mask, generator, gumbel
+        )
+
+    def generate_from_strs_legal(
+        self,
+        params: ValueRLParams,
+        prompts: Sequence[str],
+        proposals: Sequence[Sequence[str]],  # legal action strings per prompt
+        max_input_length: int,
+        sampling: SamplingConfig,
+        generator: Optional[torch.Generator] = None,
+        max_proposals: Optional[int] = None,
+        max_proposal_len: Optional[int] = None,
+    ) -> List[str]:
+        """generate_from_strs with decoding masked to each prompt's legal
+        action set. Proposal strings should end with the protocol
+        terminator (e.g. '\\n') so a completed action emits eos;
+        max_proposals / max_proposal_len cap the padded (P, L) shape."""
+        tok = self.tokenizer
+        ids, mask = _encode_prompts(tok, prompts, max_input_length, self.core.device)
+        tokenized = [[tok.encode(a) for a in props] for props in proposals]
+        P = max_proposals or max(1, max(len(p) for p in tokenized))
+        L = max_proposal_len or max(1, max((len(a) for p in tokenized for a in p), default=1))
+        cands = np.full((len(prompts), P, L), tok.pad_token_id, np.int64)
+        cmask = np.zeros((len(prompts), P), bool)
+        for i, props in enumerate(tokenized):
+            for j, a in enumerate(props[:P]):
+                a = a[:L]
+                cands[i, j, : len(a)] = a
+                cmask[i, j] = True
+        device = self.core.device
+        tokens, token_mask = self.generate_legal(
+            params, ids, mask, sampling, torch.from_numpy(cands).to(device), torch.from_numpy(cmask).to(device),
+            generator,
+        )
+        return _decode(tok, tokens, token_mask)
+
+
+class LMServer:
+    """Plain-LM serving (BC policies, oracle LMs); `params` is the policy's
+    `Transformer`."""
+
+    def __init__(self, core: LMCore, tokenizer):
+        self.core = core
+        self.tokenizer = tokenizer
+
+    def generate(
+        self,
+        params,
+        prompt_ids: torch.Tensor,
+        prompt_mask: torch.Tensor,
+        sampling: SamplingConfig,
+        generator: Optional[torch.Generator] = None,
+        gumbel: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, T = prompt_ids.shape
+        logits_fn, carry = self.core.make_lm_logits_fn(params, T + sampling.max_new_tokens, B)
+        return generate(logits_fn, carry, prompt_ids, prompt_mask, sampling, generator, gumbel)
+
+    def generate_from_strs(
+        self,
+        params,
+        prompts: Sequence[str],
+        max_input_length: int,
+        sampling: SamplingConfig,
+        generator: Optional[torch.Generator] = None,
+    ) -> List[str]:
+        ids, mask = _encode_prompts(self.tokenizer, prompts, max_input_length, self.core.device)
+        tokens, token_mask = self.generate(params, ids, mask, sampling, generator)
+        return _decode(self.tokenizer, tokens, token_mask)
+
+
+@dataclass
+class GenerationPolicy(BatchedTextPolicy):
+    """histories → generate → append Text(output, True). `generate_batch(
+    prompts, generator) -> outputs` abstracts over LM, value-guided and
+    legal-set serving; done slots return None."""
+
+    generate_batch: Callable[[List[str], Optional[torch.Generator]], List[str]]
+    generator: Optional[torch.Generator] = None
+    in_str_process: Optional[Callable[[str], str]] = None
+    out_str_process: Optional[Callable[[str], str]] = None
+
+    def act(
+        self,
+        text_history: List[Optional[TextHistory]],
+        done: Optional[List[bool]] = None,
+    ) -> List[Optional[TextHistory]]:
+        if done is None:
+            done = [False] * len(text_history)
+        live_idx = [i for i, d in enumerate(done) if not d]
+        if not live_idx:
+            return [None] * len(text_history)
+        proc_in = self.in_str_process or (lambda s: s)
+        proc_out = self.out_str_process or (lambda s: s)
+        prompts = [proc_in(text_history_to_str(text_history[i])) for i in live_idx]
+        outputs = self.generate_batch(prompts, self.generator)
+        results: List[Optional[TextHistory]] = [None] * len(text_history)
+        for i, raw_out, prompt in zip(live_idx, outputs, prompts):
+            out = proc_out(strip_prompt_from_completion(prompt, raw_out))
+            results[i] = text_history[i] + (Text(out, True),)
+        return results

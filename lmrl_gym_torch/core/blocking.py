@@ -66,3 +66,10 @@ def block_sequences(
     return np.stack(
         [block_sequence(s, pad_value, dtype, strategy) for s in seqs], axis=0
     )
+
+
+def strip_prompt_from_completion(prompt: str, completion: str) -> str:
+    """Remove the prompt prefix from a decoded generation."""
+    if completion.startswith(prompt):
+        return completion[len(prompt):]
+    return completion

@@ -15,6 +15,10 @@ lockstep on the device:
 The target draw and `random_consistent_guess` sample as
 `jax.random.categorical` does (argmax of logits plus Gumbel noise), from an
 explicit `torch.Generator` or from noise the caller hands in.
+
+`transition_knowledge` and `render_feedback` take any leading batch dims:
+one game as the JAX package's single-env functions, or B games inside
+`step`.
 """
 from __future__ import annotations
 
@@ -43,6 +47,10 @@ _DEFAULT_VOCAB = os.path.join(os.path.dirname(__file__), "vocab", "wordle_offici
 
 def encode_word(word: str) -> np.ndarray:
     return np.asarray([ord(c) - ord("a") for c in word], dtype=np.int8)
+
+
+def decode_word(chars) -> str:
+    return "".join(chr(int(c) + ord("a")) for c in chars)
 
 
 @dataclass(frozen=True)
@@ -121,6 +129,50 @@ def consistent_mask(
     return ok.all(dim=-1)  # [..., V]
 
 
+def transition_knowledge(
+    knowledge: torch.Tensor,  # [..., 26, 5] int8
+    guess: torch.Tensor,  # [..., 5] char indices
+    target: torch.Tensor,  # [..., 5] char indices
+) -> torch.Tensor:
+    """Knowledge after `guess` is scored against `target`: sequential over
+    the 5 positions (green sets [c,i]=HERE, yellow [c,i]=NOT_HERE, gray
+    overwrites the whole row with NOT_HERE, so order matters)."""
+    guess, target = guess.long(), target.long()
+    batch = guess.shape[:-1]
+    know = knowledge.reshape(-1, ALPHA, N_CHARS).clone()
+    g, tg = guess.reshape(-1, N_CHARS), target.reshape(-1, N_CHARS)
+    rows_b = torch.arange(g.shape[0], device=g.device)
+    target_has = F.one_hot(tg, ALPHA).bool().any(dim=1)  # [n,26]
+    green = g == tg
+    inword = torch.gather(target_has, 1, g)  # [n,5]
+    for i in range(N_CHARS):
+        c = g[:, i]
+        row = know[rows_b, c]  # [n,5]
+        row_green = row.clone()
+        row_green[:, i] = HERE
+        row_yellow = row.clone()
+        row_yellow[:, i] = NOT_HERE
+        row_gray = torch.full_like(row, NOT_HERE)
+        know[rows_b, c] = torch.where(
+            green[:, i:i + 1], row_green, torch.where(inword[:, i:i + 1], row_yellow, row_gray)
+        )
+    return know.reshape(batch + (ALPHA, N_CHARS))
+
+
+def render_feedback(knowledge: torch.Tensor, guess: torch.Tensor) -> torch.Tensor:
+    """Feedback codes the agent observes, rendered from the post-update
+    knowledge: GREEN if the cell is HERE; GRAY if the letter's whole row is
+    NOT_HERE; else YELLOW if the cell is NOT_HERE (else GRAY). [..., 5] int8."""
+    rows = torch.gather(knowledge, -2, guess.long()[..., None].expand(guess.shape + (N_CHARS,)))  # [...,5,5]
+    cell = torch.diagonal(rows, dim1=-2, dim2=-1)  # [...,5]
+    row_all_nothere = (rows == NOT_HERE).all(dim=-1)
+    return torch.where(
+        cell == HERE,
+        GREEN,
+        torch.where(row_all_nothere, GRAY, torch.where(cell == NOT_HERE, YELLOW, GRAY)),
+    ).to(torch.int8)
+
+
 def _where_state(frozen: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     return torch.where(frozen.view((-1,) + (1,) * (old.dim() - 1)), old, new)
 
@@ -137,6 +189,9 @@ class WordleVectorEnv:
         self.bad_word_reward = bad_word_reward
         self.vocab_chars = torch.as_tensor(vocab.chars, device=self.device)
         self.vocab_has = torch.as_tensor(vocab.has_char, device=self.device)
+
+    def reset(self, batch: int) -> WordleState:
+        return initial_state(batch, self.device)
 
     def step(
         self,
@@ -160,42 +215,17 @@ class WordleVectorEnv:
         target_idx = categorical(logits, generator, gumbel)
         target = self.vocab_chars[target_idx].long()  # [B,5]
 
-        # batched sequential knowledge update
-        target_has = F.one_hot(target, ALPHA).bool().any(dim=1)  # [B,26]
-        green = guess == target
-        inword = torch.gather(target_has, 1, guess)  # [B,5]
-        new_knowledge = knowledge.clone()
-        for i in range(N_CHARS):
-            c = guess[:, i]
-            row = new_knowledge[rows_b, c]  # [B,5]
-            row_green = row.clone()
-            row_green[:, i] = HERE
-            row_yellow = row.clone()
-            row_yellow[:, i] = NOT_HERE
-            row_gray = torch.full_like(row, NOT_HERE)
-            new_row = torch.where(
-                green[:, i:i + 1], row_green, torch.where(inword[:, i:i + 1], row_yellow, row_gray)
-            )
-            new_knowledge[rows_b, c] = new_row
-
-        # invalid guesses leave knowledge unchanged
+        # sequential knowledge update; invalid guesses leave knowledge unchanged
+        new_knowledge = transition_knowledge(knowledge, guess, target)
         new_knowledge = torch.where(in_vocab[:, None, None], new_knowledge, knowledge)
 
         # observed feedback rendered from the post-update state
-        rows = new_knowledge[rows_b[:, None], guess]  # [B,5,5]
-        pos = torch.arange(N_CHARS, device=knowledge.device)
-        cell = rows[:, pos, pos]  # [B,5]
-        row_all_nothere = (rows == NOT_HERE).all(dim=-1)
-        feedback = torch.where(
-            cell == HERE,
-            GREEN,
-            torch.where(row_all_nothere, GRAY, torch.where(cell == NOT_HERE, YELLOW, GRAY)),
-        ).to(torch.int8)
-        feedback = torch.where(in_vocab[:, None], feedback, torch.tensor(GRAY, dtype=torch.int8, device=feedback.device))
+        feedback = render_feedback(new_knowledge, guess)
+        feedback = torch.where(in_vocab[:, None], feedback, GRAY)
 
         # history: every try consumes a slot; valid guesses stored
         slot = state.n_guesses.clamp(0, N_TRIES - 1).long()
-        stored = torch.where(in_vocab[:, None], guess.to(torch.int8), torch.tensor(-1, dtype=torch.int8, device=guess.device))
+        stored = torch.where(in_vocab[:, None], guess.to(torch.int8), -1)
         new_hist = state.guess_hist.clone()
         new_hist[rows_b, slot] = stored
         new_n = state.n_guesses + 1
@@ -208,7 +238,7 @@ class WordleVectorEnv:
         guessed = (new_hist == only_word[:, None, :]).all(dim=-1).any(dim=-1)
         win = (n_consistent == 1) & guessed
 
-        reward = torch.where(in_vocab, win.float() - 1.0, torch.tensor(self.bad_word_reward, device=win.device))
+        reward = torch.where(in_vocab, win.float() - 1.0, self.bad_word_reward)
         new_done = (new_n >= N_TRIES) | (reward == 0.0)
 
         frozen = state.done
@@ -232,3 +262,30 @@ class WordleVectorEnv:
         mask = consistent_mask(state.knowledge, self.vocab_chars, self.vocab_has)
         logits = torch.where(mask, 0.0, -torch.inf)
         return self.vocab_chars[categorical(logits, generator, gumbel)]
+
+    def auto_reset(self, state: WordleState) -> WordleState:
+        """Reset done slots to fresh games (for continuous batched rollout)."""
+        fresh = initial_state(state.done.shape[0], state.done.device)
+        return WordleState(**{
+            f: _where_state(state.done, getattr(fresh, f), getattr(state, f)) for f in WordleState.__dataclass_fields__
+        })
+
+    def rollout_episodes(
+        self,
+        batch: int,
+        generator: Optional[torch.Generator] = None,
+        guess_gumbel: Optional[torch.Tensor] = None,  # [N_TRIES, B, V_words] noise of each turn's guess
+        env_gumbel: Optional[torch.Tensor] = None,  # [N_TRIES, B, V_words] noise of each turn's target
+    ) -> Tuple[WordleState, torch.Tensor, torch.Tensor]:
+        """Full 6-turn episodes for `batch` games under the random-
+        consistent-guess policy → (final_state, total_reward [B], wins [B]).
+        A won game's later turns are frozen at reward 0, so a game won iff
+        its last turn's reward is 0."""
+        state = initial_state(batch, self.device)
+        total = torch.zeros_like(state.reward)
+        valid = torch.ones_like(state.done)
+        for t in range(N_TRIES):
+            guess = self.random_consistent_guess(state, generator, None if guess_gumbel is None else guess_gumbel[t])
+            state, _ = self.step(state, guess, valid, generator, None if env_gumbel is None else env_gumbel[t])
+            total = total + state.reward
+        return state, total, state.reward == 0.0

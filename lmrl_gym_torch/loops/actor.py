@@ -14,7 +14,8 @@ so a full episode is exactly 128 tokens: one 8-token header prefill, then
 per turn ten 1-token decode steps, one env step and one 10-token
 observation append. Every trunk therefore runs 7 multi-token cached
 forwards (the flash kernel) and 60 single-token steps (the decode kernel)
-per episode.
+per episode. `rollout_wordle_scripted` writes the same stream from scripted
+guesses, with no model: the behavior data of the Wordle ILQL gate.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from lmrl_gym_torch.core.random import categorical
-from lmrl_gym_torch.envs.wordle.vector import N_CHARS, N_TRIES, WordleVectorEnv, initial_state
+from lmrl_gym_torch.envs.wordle.vector import GREEN, N_CHARS, N_TRIES, YELLOW, WordleVectorEnv, initial_state
 from lmrl_gym_torch.models.interface import LMCore
 from lmrl_gym_torch.models.transformer import KVCache, mask_pad_logits
 
@@ -74,6 +75,19 @@ class WordleRollout(NamedTuple):
             off = len(HEADER) + t * TURN_LEN
             live_by_slot[:, off: off + TURN_LEN] = self.turn_live[:, t: t + 1]
         return live_by_slot & is_action[None, :]
+
+
+class ScriptedNoise(NamedTuple):
+    """Draws of one scripted rollout, handed in to replay another sampler's,
+    per turn in the JAX package's order: `guess` [N_TRIES, B, V_words]
+    Gumbel noise of the consistent guess, `rand_idx` [N_TRIES, B] the random
+    word's index, `uniform` [N_TRIES, B] the mixture draw, `env`
+    [N_TRIES, B, V_words] the feedback target's Gumbel noise."""
+
+    guess: torch.Tensor
+    rand_idx: torch.Tensor
+    uniform: torch.Tensor
+    env: torch.Tensor
 
 
 class WordleNoise(NamedTuple):
@@ -138,6 +152,42 @@ def make_value_guided_step_fn(
     return step_fn, (base_cache, pi_cache)
 
 
+def _obs_tokens(feedback: torch.Tensor) -> torch.Tensor:
+    """Feedback codes [B,5] → the observation "b y g b b\\n" as 10 tokens
+    (the byte map as arithmetic on the device: no host-to-device copy)."""
+    gray, yellow, green = _FEEDBACK_BYTES
+    fb = torch.where(feedback == GREEN, green, torch.where(feedback == YELLOW, yellow, gray))
+    obs = torch.full((feedback.shape[0], 2 * N_CHARS), _SP, dtype=torch.int64, device=feedback.device)
+    obs[:, 0: 2 * N_CHARS: 2] = fb
+    obs[:, 2 * N_CHARS - 1] = _NL
+    return obs
+
+
+def _episode_tokens(batch: int, device) -> torch.Tensor:
+    tokens = torch.zeros((batch, EPISODE_LEN), dtype=torch.int64, device=device)
+    tokens[:, : len(HEADER)] = torch.tensor(HEADER, dtype=torch.int64, device=device)
+    return tokens
+
+
+def _write_turn(tokens: torch.Tensor, t: int, act: torch.Tensor, obs: torch.Tensor) -> None:
+    off = len(HEADER) + t * TURN_LEN
+    tokens[:, off: off + 2 * N_CHARS] = act
+    tokens[:, off + 2 * N_CHARS: off + TURN_LEN] = obs
+
+
+def _rollout_result(tokens, turn_reward, turn_live) -> WordleRollout:
+    turn_reward = torch.stack(turn_reward, dim=1)  # [B, N_TRIES]
+    turn_live = torch.stack(turn_live, dim=1)
+    win = ((turn_reward == 0.0) & turn_live).any(dim=-1)
+    return WordleRollout(
+        tokens=tokens,
+        turn_reward=turn_reward,
+        turn_live=turn_live,
+        win=win,
+        n_turns=turn_live.sum(dim=-1).to(torch.int32),
+    )
+
+
 @torch.inference_mode()
 def rollout_wordle(
     env: WordleVectorEnv,
@@ -160,16 +210,13 @@ def rollout_wordle(
     `generator`, or the replayed draws in `noise`."""
     B = batch
     device = env.device
-    header = torch.tensor(HEADER, dtype=torch.int64, device=device).expand(B, len(HEADER))
+    tokens = _episode_tokens(B, device)
 
     # prefill the header; last logits condition the first action token
-    logits, carry = step_fn(params, header, init_carry)
+    logits, carry = step_fn(params, tokens[:, : len(HEADER)], init_carry)
     last_logits = logits[:, -1, :]
 
-    tokens = torch.zeros((B, EPISODE_LEN), dtype=torch.int64, device=device)
-    tokens[:, : len(HEADER)] = header
     state = initial_state(B, device)
-    fb_bytes = torch.tensor(_FEEDBACK_BYTES, dtype=torch.int64, device=device)
     if constrain_vocab:
         # [V,5] letter indices and [5,V,26] per-position one-hots for the
         # alive-word → allowed-letter contraction
@@ -218,14 +265,8 @@ def rollout_wordle(
 
         state, feedback = env.step(state, guess, valid, generator, noise.env[t] if noise is not None else None)
 
-        # feedback "b y g b b\n" as 10 obs tokens
-        obs = torch.full((B, 2 * N_CHARS), _SP, dtype=torch.int64, device=device)
-        obs[:, 0: 2 * N_CHARS: 2] = fb_bytes[feedback.long()]
-        obs[:, 2 * N_CHARS - 1] = _NL
-
-        off = len(HEADER) + t * TURN_LEN
-        tokens[:, off: off + 2 * N_CHARS] = act
-        tokens[:, off + 2 * N_CHARS: off + TURN_LEN] = obs
+        obs = _obs_tokens(feedback)
+        _write_turn(tokens, t, act, obs)
 
         # advance the cache over the observation; its last logits start the
         # next turn's action
@@ -234,14 +275,57 @@ def rollout_wordle(
 
         turn_reward.append(state.reward * live)
         turn_live.append(live)
+    return _rollout_result(tokens, turn_reward, turn_live)
 
-    turn_reward = torch.stack(turn_reward, dim=1)  # [B, N_TRIES]
-    turn_live = torch.stack(turn_live, dim=1)
-    win = ((turn_reward == 0.0) & turn_live).any(dim=-1)
-    return WordleRollout(
-        tokens=tokens,
-        turn_reward=turn_reward,
-        turn_live=turn_live,
-        win=win,
-        n_turns=turn_live.sum(dim=-1).to(torch.int32),
-    )
+
+@torch.inference_mode()
+def rollout_wordle_scripted(
+    env: WordleVectorEnv,
+    batch: int,
+    p_smart: float = 1.0,
+    p_repeat: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[ScriptedNoise] = None,
+) -> WordleRollout:
+    """Device-side behavior generator, no model: each turn's guess is the
+    env's random-CONSISTENT guess w.p. p_smart, a REPEAT of the previous
+    valid guess w.p. p_repeat (else a random word when there is none yet),
+    else a uniform random vocab word (valid but feedback-blind). A per-TURN
+    quality mixture, so identical contexts carry both good and bad actions.
+    The token stream is byte-identical to `rollout_wordle`'s, so the
+    rollouts feed BC/ILQL training directly. Draws come from `generator`,
+    or are replayed from `noise`."""
+    if p_smart + p_repeat > 1.0:
+        raise ValueError(f"p_smart + p_repeat must be at most 1, got {p_smart} + {p_repeat}")
+    B, device = batch, env.device
+    rows = torch.arange(B, device=device)
+    vchars = env.vocab_chars.long()
+    V = vchars.shape[0]
+    tokens = _episode_tokens(B, device)
+    state = initial_state(B, device)
+    turn_reward, turn_live = [], []
+    for t in range(N_TRIES):
+        live = ~state.done
+        g_smart = env.random_consistent_guess(state, generator, None if noise is None else noise.guess[t])
+        idx = torch.randint(0, V, (B,), generator=generator, device=device) if noise is None else noise.rand_idx[t]
+        g_rand = vchars[idx.long()]
+        # previous valid guess (guess_hist holds -1 for none or invalid)
+        last_slot = (state.n_guesses - 1).clamp(0, N_TRIES - 1).long()
+        g_last = state.guess_hist[rows, last_slot].long()
+        g_repeat = torch.where((g_last[:, 0] >= 0)[:, None], g_last, g_rand)
+        u = torch.rand((B,), generator=generator, device=device) if noise is None else noise.uniform[t]
+        smart = u < p_smart
+        repeat = ~smart & (u < p_smart + p_repeat)
+        guess = torch.where(smart[:, None], g_smart.long(), torch.where(repeat[:, None], g_repeat, g_rand))
+
+        state, feedback = env.step(
+            state, guess, torch.ones((B,), dtype=torch.bool, device=device), generator,
+            None if noise is None else noise.env[t],
+        )
+        act = torch.full((B, 2 * N_CHARS), _SP, dtype=torch.int64, device=device)
+        act[:, 0: 2 * N_CHARS: 2] = _A + guess
+        act[:, 2 * N_CHARS - 1] = _NL
+        _write_turn(tokens, t, act, _obs_tokens(feedback))
+        turn_reward.append(state.reward * live)
+        turn_live.append(live)
+    return _rollout_result(tokens, turn_reward, turn_live)

@@ -66,12 +66,17 @@ def test_no_forbidden_imports(path):
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from lmrl_gym_torch.algos.bc import BCConfig, make_bc_train_step
     from lmrl_gym_torch.algos.ilql import ILQLConfig, init_ilql_state, make_ilql_train_step
+    from lmrl_gym_torch.algos.value_policy import LMServer
     from lmrl_gym_torch.core.optimizer import adam
     from lmrl_gym_torch.envs.wordle.vector import WordleVectorEnv, WordleVocab
+    from lmrl_gym_torch.loops.actor import rollout_wordle_scripted
+    from lmrl_gym_torch.loops.online_device import OnlineDeviceConfig, online_ilql_wordle
     from lmrl_gym_torch.models.config import tiny_test_config
     from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
     from lmrl_gym_torch.models.interface import LMCore
     from lmrl_gym_torch.models.transformer import KVCache, Transformer
+    from lmrl_gym_torch.scripts import wordle_ilql_gate
+    from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_test_config()
@@ -86,6 +91,11 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         lambda: make_bc_train_step(LMCore(cfg), BCConfig(), 256),
         lambda: init_ilql_state(Transformer(cfg), *(MLPHead(MLPHeadConfig(64, 128, n)) for n in (320, 320, 1)),
                                 adam(1e-4), adam(1e-3), ILQLConfig()),
+        lambda: rollout_wordle_scripted(WordleVectorEnv(WordleVocab.from_file()), 4),
+        lambda: online_ilql_wordle(LMCore(cfg), None, WordleVectorEnv(WordleVocab.from_file()), ILQLConfig(),
+                                   OnlineDeviceConfig()),
+        lambda: LMServer(LMCore(cfg), ByteTokenizer()),
+        lambda: wordle_ilql_gate.main(["--bc-steps", "1", "--pbc-steps", "1", "--ilql-steps", "1"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
