@@ -20,7 +20,11 @@ Phases, each of which exits non-zero on failure:
    took, and the kernel, plain and library
    (scaled_dot_product_attention, forward or backward, a yardstick the port
    never calls) times; the backward cases include the online train step's
-   (B=64, H=12, T=128) and the gate's (B=512, H=4, T=128) shapes;
+   (B=64, H=12, T=128) and the gate's (B=512, H=4, T=128) shapes, and
+   one bf16 case on right-padded windows whose pad rows keep a live
+   cotangent, held against the plain version with P and dS rounded to
+   bf16 (the kernels' arithmetic), its drift from the f32-P plain version
+   printed;
 2p. K1 and K4 against their plain versions at the later paths' shapes,
    bf16: the online rollout (B=256, H=12) and the gate's evals (B=512,
    H=4) on cache views, the text env's and LMServer's left-padded prefill
@@ -65,6 +69,29 @@ Phases, each of which exits non-zero on failure:
    every game over within 6 turns, 24 flash_fwd (left-padded, with bias)
    and 240 decode_attn launches per turn; then `LMServer.generate_from_strs`
    answers 4 prompts;
+3m. the MC-returns train step at phase 3t's operating point (one MLP Q
+   head): one warm-up, five timed steps with exact launch counts (12 / 12 /
+   12, tensor cores) and finite losses, one profiled step; then one
+   full-width f32 step on the card against the CPU (as phase 4's ILQL
+   step);
+3c. the CQL train step at the same point with a separate target base and
+   a next window of 16 (36 / 12 / 12 per step), the same checks, its peak
+   memory;
+3p. one PPO round on the maze (`build_maze_env`, byte tokenizer, episodes
+   cut to 8 moves) at GPT-2-small width over the byte vocab: 32 episodes
+   at batch 16 through `GenerationPolicy` → `LMServer` → `text_env_eval`
+   (12 K1 and 144 K4 launches per call), `get_ppo_data_from_chains`
+   through `make_ppo_forward_fn` (24 K1 per call, finite KL and values),
+   `block_ppo_data`, then two PPO steps at B=32 without the BC term (12 /
+   12 / 12) and two with it (24 / 24 / 24), finite losses, moving weights;
+3r. `ReRankerPolicy` over the maze's four move proposals in all 25 cells,
+   scored at the same width by `make_ilql_score_fn` (twin Q and V: 12 K1
+   per score call; with a π_β trunk and `logit_weight`: 24) and
+   `make_mc_score_fn` (12): every action one of the proposals;
+3z. the port's maze gate (`lmrl_gym_torch/scripts/maze_ilql_gate.py`) at
+   its own width (d256 L4 H4, byte vocab) and a cut budget (50 chains, one
+   BC epoch, two value epochs, legal-move guided decode), --algo cql then
+   --algo mc: launch counts exactly the budget's, accuracies in [0, 1];
 4. the same full-width serving weights at B=4 on the card (kernels, bf16)
    against the CPU (plain path, f32): header prefill plus 3 decode steps;
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
@@ -77,7 +104,10 @@ Phases, each of which exits non-zero on failure:
    the CUDA-core variant's time on the same shapes (`simt_ms`), the
    kernel the tensor-core one replaced there. flash_fwd runs on
    both paths: its main keys are the rollout's, and the `*_train_step`
-   keys the same numbers for one ILQL train step. Every kernel with two
+   keys the same numbers for one ILQL train step; `launches_<path>` are
+   the counts recorded on each later path (the online round and step, the
+   Wordle gate, a text-env turn, an MC, CQL and PPO step, a PPO forward
+   call and rollout turn, a score call, the cut maze gates). Every kernel with two
    variants carries the `variant` its main path runs and its `tc_launches`; and beside SDPA's backward
    (`library_ms`, which computes its own rowsum(dO ⊙ O)) the port's Δ pass
    (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`).
@@ -95,9 +125,11 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from lmrl_gym_torch.algos.bc import BCBatch, BCConfig, BCTrainState, make_bc_train_step
+from lmrl_gym_torch.algos.cql import CQLConfig, cql_forward, init_cql_state, make_cql_train_step
 from lmrl_gym_torch.algos.ilql import (
     ILQLBatch,
     ILQLConfig,
@@ -105,16 +137,39 @@ from lmrl_gym_torch.algos.ilql import (
     init_ilql_state,
     make_ilql_train_step,
 )
-from lmrl_gym_torch.algos.value_policy import GenerationPolicy, LMServer, ValueGuidedServer, ValueRLParams
-from lmrl_gym_torch.core.optimizer import TrainState, adamw
+from lmrl_gym_torch.algos.mc import MCBatch, MCConfig, MCTrainState, make_mc_train_step, mc_loss_from_params
+from lmrl_gym_torch.algos.ppo import (
+    PPOBatch,
+    PPOConfig,
+    PPOTrainState,
+    block_ppo_data,
+    get_ppo_data_from_chains,
+    make_ppo_forward_fn,
+    make_ppo_train_step,
+)
+from lmrl_gym_torch.algos.value_policy import (
+    GenerationPolicy,
+    LMServer,
+    ReRankerPolicy,
+    ValueGuidedServer,
+    ValueRLParams,
+    make_ilql_score_fn,
+    make_mc_score_fn,
+    tokenize_histories_for_scoring,
+)
+from lmrl_gym_torch.cli.tasks import build_maze_env, generate_maze_chains
+from lmrl_gym_torch.core.blocking import BlockingStrategy, Padding, Truncation
+from lmrl_gym_torch.core.optimizer import TrainState, adamw, value_and_grads
 from lmrl_gym_torch.envs.base import text_env_eval
+from lmrl_gym_torch.envs.maze.eval import per_cell_optimal_move_accuracy
+from lmrl_gym_torch.envs.maze.grids import ACTION_STRS, double_t_maze
 from lmrl_gym_torch.envs.wordle.env import ReformatWordleEnv, WordleEnv
 from lmrl_gym_torch.envs.wordle.vector import N_TRIES, WordleVectorEnv, WordleVocab
 from lmrl_gym_torch.loops import actor, online_device
 from lmrl_gym_torch.loops.online_device import OnlineDeviceConfig, online_ilql_wordle, wordle_rollout_to_ilql_batch
 from lmrl_gym_torch.models.config import gpt2_small
 from lmrl_gym_torch.models.generation import SamplingConfig
-from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
+from lmrl_gym_torch.models.heads import LinearHead, LinearHeadConfig, MLPHead, MLPHeadConfig
 from lmrl_gym_torch.models.interface import LMCore
 from lmrl_gym_torch.models.transformer import Transformer, init_params
 from lmrl_gym_torch.ops import _build
@@ -126,12 +181,20 @@ from lmrl_gym_torch.ops.flash_attention import (
     _plain_attention,
     _plain_bwd_dkv,
     _plain_bwd_dq,
+    _plain_dscores,
     _variant,
     flash_bwd_dkv,
     flash_bwd_dq,
     flash_fwd,
 )
-from lmrl_gym_torch.scripts import wordle_ilql_gate
+from lmrl_gym_torch.scripts import maze_ilql_gate, wordle_ilql_gate
+from lmrl_gym_torch.text.frames import (
+    Text,
+    TextTrajectory,
+    TextTrajectoryChain,
+    TokenTrajectoryChain,
+    text_history_to_str,
+)
 from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -158,6 +221,9 @@ PAD_ID = 50256  # as bench.py passes it (no batch token is a pad)
 # card vs CPU ILQL step in f32 at full width: TF32 is off, so only the
 # summation order differs (~1e-6 relative per op)
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-4, 1e-3
+# the maze paths: windows and prompts blocked to 160 tokens (the maze
+# gate's MAX_LEN), 12 new tokens per action
+MAZE_LEN, MAZE_NEW = 160, 12
 
 
 class SmokeFailure(Exception):
@@ -411,38 +477,89 @@ def phase_kernel_checks() -> dict:
     return errs
 
 
-def _bwd_inputs(Tq, S, dtype, padded, gen, b=TRAIN_B, h=H, dh=DH):
+def _bwd_inputs(Tq, S, dtype, padded, gen, b=TRAIN_B, h=H, dh=DH, live_pad_rows=False):
     """One backward's inputs as the trunk makes them: q/k/v views into a
     fused [b, S, 3, h, dh] projection, the forward's lse, a cotangent zero
     on fully masked (left-pad) query rows, and Δ; the [b, Tq] mask of query
-    rows that see a key; and the forward's out."""
+    rows that see a key; and the forward's out. `padded` is False, True or
+    "left" (a left-pad bias), or "right" (a right-pad bias: the blocked
+    windows of the maze and PPO data). The cotangent is zero on every pad
+    query row, as the trunk gives it: no real position reads a left-pad
+    row (fully masked) or a right-pad row (causally after every real
+    one), and the losses mask both. `live_pad_rows` keeps a random
+    cotangent on them instead."""
     qkv = torch.randn(b, S, 3, h, dh, device="cuda", generator=gen).to(dtype)
     q = qkv[:, S - Tq:, 0].transpose(1, 2)
     k, v = qkv[:, :, 1].transpose(1, 2), qkv[:, :, 2].transpose(1, 2)
     bias = torch.zeros(b, S, device="cuda")
     rows = torch.ones(b, Tq, dtype=torch.bool, device="cuda")
-    if padded:
+    pos = torch.arange(S, device="cuda")[None, :]
+    if padded == "right":
+        n_valid = torch.randint(1, S + 1, (b,), device="cuda", generator=gen)
+        bias = torch.where(pos < n_valid[:, None], 0.0, _NEG_BIG).float()
+    elif padded:
         n_pad = torch.randint(0, S, (b,), device="cuda", generator=gen)
-        bias = torch.where(torch.arange(S, device="cuda")[None, :] >= n_pad[:, None], 0.0, _NEG_BIG).float()
+        bias = torch.where(pos >= n_pad[:, None], 0.0, _NEG_BIG).float()
         rows = bias[:, S - Tq:] == 0
     out, lse = flash_fwd(q, k, v, bias, True, 1.0 / dh**0.5)
     dout = torch.randn(b, Tq, h, dh, device="cuda", generator=gen).to(dtype).transpose(1, 2)
-    dout = dout * rows[:, None, :, None].to(dtype)
+    if not live_pad_rows:
+        dout = dout * (bias[:, S - Tq:] == 0)[:, None, :, None].to(dtype)
     return (q, k, v, bias, lse, _delta(out, dout), dout), rows, out
+
+
+def _plain_bwd_rounded(q, k, v, bias, lse, delta, dout, causal: bool, scale: float):
+    """The plain backward with P and dS rounded to bf16 before the products
+    that take them (dV = Pᵀ·dO, dQ = dS·K, dK = dSᵀ·Q), as the tensor-core
+    kernels round them as MMA operands; f32 sums → (dq, dk, dv) in bf16."""
+    p, ds = _plain_dscores(q, k, v, bias, lse, delta, dout, causal, scale)
+    p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dout.float())
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _check_bwd_live_pad_rows(gen, errs: dict) -> None:
+    """bf16 K2 and K3 on right-padded maze windows whose pad query rows keep
+    a live cotangent (no trunk gives them one): up to 160 rows then feed the
+    few keys of a short window, and the bf16 rounding of P and dS adds up
+    there. Held against `_plain_bwd_rounded`, the kernels' own arithmetic;
+    the drift from the plain version (P and dS in f32) is printed."""
+    dtype, scale = torch.bfloat16, 1.0 / DH**0.5
+    args, _, _ = _bwd_inputs(MAZE_LEN, MAZE_LEN, dtype, "right", gen, live_pad_rows=True)
+    got = (flash_bwd_dq(*args, True, scale), *flash_bwd_dkv(*args, True, scale))
+    rounded = _plain_bwd_rounded(*args, True, scale)
+    plain = (_plain_bwd_dq(*args, True, scale), *_plain_bwd_dkv(*args, True, scale))
+    torch.cuda.synchronize()
+    line = []
+    for name, a, r, p in zip(("dq", "dk", "dv"), got, rounded, plain):
+        err = (a.float() - r.float()).abs().max().item()
+        over = ((a.float() - r.float()).abs() - GRAD_TOL[dtype][1] * r.float().abs()).max().item()
+        check(over <= GRAD_TOL[dtype][0], f"flash_bwd {name} live pad rows: max abs err {err} against the "
+                                          f"bf16-rounded plain version, over tolerance {GRAD_TOL[dtype]}")
+        kernel = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+        errs[kernel] = max(errs[kernel], err)
+        line.append(f"{name}_max_abs_err={err:.3e} {name}_drift_from_plain={(a.float() - p.float()).abs().max().item():.3e}")
+    log(f"check flash_bwd B={TRAIN_B} H={H} Dh={DH} Tq=S={MAZE_LEN} right-padded, live pad rows, bf16, against the "
+        f"bf16-rounded plain version: " + " ".join(line) + f" (atol, rtol {GRAD_TOL[dtype]})")
 
 
 def _tc_counts():
     return flash_bwd_dq.tc_launches, flash_bwd_dkv.tc_launches
 
 
-# phase 2's backward cases: (b, h, dh, Tq, S, left-padded); the training
+# phase 2's backward cases: (b, h, dh, Tq, S, padding); the training
 # shapes first, then the online train step's (B=64, T=128) and the gate's
 # (d256 H4: B=512, H=4, T=128), a ragged T (not a multiple of the 64-row
-# tile) and LLaMA's head width
+# tile), LLaMA's head width, and the right-padded maze windows blocked to
+# 160 tokens of the PPO steps and the PPO forward (B=32, H=12) and of the
+# maze gate's train steps (d256 H4: B=32, H=4)
 BWD_CASES = (
     (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, False), (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
     (TRAIN_B, H, DH, 96, TRAIN_T, False), (64, H, DH, T_MAX, T_MAX, False), (512, 4, DH, T_MAX, T_MAX, False),
     (TRAIN_B, H, DH, 100, 100, True), (TRAIN_B, H, DH, 37, 100, False), (4, 32, 128, 160, 160, True),
+    (TRAIN_B, H, DH, MAZE_LEN, MAZE_LEN, "right"), (TRAIN_B, 4, DH, MAZE_LEN, MAZE_LEN, "right"),
 )
 
 
@@ -469,7 +586,7 @@ def phase_bwd_checks() -> dict:
             args, rows, _ = _bwd_inputs(Tq, S, dtype, padded, gen, b, h, dh)
             q, k, v, bias, lse, delta, dout = args
             shape = f"B={b} H={h} Dh={dh} Tq={Tq} S={S}"
-            fwd_err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"{shape} left_pad={padded}")
+            fwd_err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"{shape} padding={padded}")
             errs["flash_fwd"] = max(errs["flash_fwd"], fwd_err)
             tc0 = _tc_counts()
             dq = flash_bwd_dq(*args, True, scale)
@@ -494,9 +611,10 @@ def phase_bwd_checks() -> dict:
             t_pdq = cuda_ms(lambda: _plain_bwd_dq(*args, True, scale))
             t_pdkv = cuda_ms(lambda: _plain_bwd_dkv(*args, True, scale))
             t_lib = sdpa_bwd_ms(q, k, v, bias, dout, scale, causal_only=not padded and Tq == S)
-            log(f"check flash_bwd {shape} offset={S - Tq} left_pad={padded} {str(dtype)[6:]}: "
+            log(f"check flash_bwd {shape} offset={S - Tq} padding={padded} {str(dtype)[6:]}: "
                 + " ".join(line) + f" (atol, rtol fwd {TOL[dtype]}, bwd {GRAD_TOL[dtype]}) dq_ms={t_dq:.4f} dkv_ms={t_dkv:.4f} "
                 f"plain_dq_ms={t_pdq:.4f} plain_dkv_ms={t_pdkv:.4f} library_bwd_ms={t_lib:.4f}")
+    _check_bwd_live_pad_rows(gen, errs)
     return errs
 
 
@@ -509,8 +627,11 @@ def phase_path_checks() -> dict:
     left-padded to T_MAX, a cache of T_MAX + 10) and LMServer's (B=4,
     prompts padded to 48, a cache of 58) — K1 on the left-padded prefill
     with bias, K4 with bias at the first, a middle and the last of the 10
-    decode slots. The online and gate train steps' K1-K3 shapes are in
-    BWD_CASES."""
+    decode slots; the PPO rollout's LMServer (B=16, H=12) and the maze
+    gate's evals (B=25, H=4), prompts left-padded to 160 with 12 new
+    tokens, in bf16 and f32; and K1 on the score calls' 100 proposals
+    right-padded to 160 (H=12 and 4), bf16 and f32. The online, gate, PPO
+    and maze gate train steps' K1-K3 shapes are in BWD_CASES."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     dtype = torch.bfloat16
     errs = {"flash_fwd": 0.0, "decode_attn": 0.0}
@@ -527,18 +648,32 @@ def phase_path_checks() -> dict:
             err = _check_decode(q, k, v, index, bias, dtype, f"B={b} H={h} index={index}")
             errs["decode_attn"] = max(errs["decode_attn"], err)
             log(f"check decode_attn B={b} H={h} T_max={T_MAX} index={index} bf16: max_abs_err={err:.3e}")
-    for b, prompt in ((8, T_MAX), (4, 48)):
-        t_max = prompt + 10
-        q, k, v, bias = _flash_inputs(prompt, prompt, dtype, True, gen, b, H, t_max=t_max)
-        err, lse_err = _check_fwd(q, k, v, bias, bias == 0, dtype, f"B={b} prefill {prompt} left-padded")
+    # (batch, heads, prompt, new tokens, dtype): the text env, LMServer, the
+    # PPO rollout's LMServer (B=16) and the maze gate's evals (d256 H4, 25
+    # cells); the maze paths in f32 too (their CUDA-core K1)
+    maze = [(16, H, MAZE_LEN, MAZE_NEW, dt) for dt in (dtype, torch.float32)]
+    maze += [(25, 4, MAZE_LEN, MAZE_NEW, dt) for dt in (dtype, torch.float32)]
+    for b, h, prompt, n_new, dtype in [(8, H, T_MAX, 10, dtype), (4, H, 48, 10, dtype)] + maze:
+        t_max = prompt + n_new
+        q, k, v, bias = _flash_inputs(prompt, prompt, dtype, True, gen, b, h, t_max=t_max)
+        err, lse_err = _check_fwd(q, k, v, bias, bias == 0, dtype, f"B={b} H={h} prefill {prompt} left-padded")
         errs["flash_fwd"] = max(errs["flash_fwd"], err)
-        log(f"check flash_fwd B={b} H={H} prefill Tq=S={prompt} of a {t_max} cache, left-padded bf16: "
+        log(f"check flash_fwd B={b} H={h} prefill Tq=S={prompt} of a {t_max} cache, left-padded {str(dtype)[6:]}: "
             f"max_abs_err={err:.3e} (atol, rtol {TOL[dtype]}) lse_err={lse_err:.3e}")
-        for index in (prompt, prompt + 5, prompt + 9):
-            q, k, v, bias = _decode_inputs(index, dtype, True, gen, b, H, t_max=t_max, max_pad=prompt - 1)
-            err = _check_decode(q, k, v, index, bias, dtype, f"B={b} T_max={t_max} index={index} left-padded")
+        for index in (prompt, prompt + n_new // 2, prompt + n_new - 1):
+            q, k, v, bias = _decode_inputs(index, dtype, True, gen, b, h, t_max=t_max, max_pad=prompt - 1)
+            err = _check_decode(q, k, v, index, bias, dtype, f"B={b} H={h} T_max={t_max} index={index} left-padded")
             errs["decode_attn"] = max(errs["decode_attn"], err)
-            log(f"check decode_attn B={b} H={H} T_max={t_max} index={index} left-padded bf16: max_abs_err={err:.3e}")
+            log(f"check decode_attn B={b} H={h} T_max={t_max} index={index} left-padded {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3e}")
+    # the score calls: 25 cells x 4 move proposals, right-padded to 160
+    for h in (H, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            (q, k, v, bias, *_), rows, _ = _bwd_inputs(MAZE_LEN, MAZE_LEN, dtype, "right", gen, 100, h)
+            err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"B=100 H={h} T={MAZE_LEN} right-padded")
+            errs["flash_fwd"] = max(errs["flash_fwd"], err)
+            log(f"check flash_fwd B=100 H={h} Tq=S={MAZE_LEN} right-padded (score call) {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3e} (atol, rtol {TOL[dtype]}) lse_err={lse_err:.3e}")
     return errs
 
 
@@ -1191,6 +1326,345 @@ def phase_train_card_vs_cpu(config) -> None:
         check(r <= STEP_GRAD_RTOL, f"card vs CPU ILQL {name} gradient rel diff {r}")
 
 
+# ---------------- slice 6: MC, CQL, PPO, reranking, the maze gate ----------------
+
+SLICE6_REPS = 5  # timed steps of the MC and CQL steps (after one warm-up)
+PPO_EPISODES, PPO_BSIZE, PPO_MAX_STEPS = 32, 16, 8  # maze episodes cut to 8 moves (+ the failure turn)
+MAZE_GATE_ARGS = ["--n-chains", "50", "--bc-epochs", "1", "--ilql-epochs", "2", "--lr-warmdown", "--guided-legal"]
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _counted(fn, *args, device="cuda", **kwargs):
+    """fn(*args, **kwargs) with every launch counter set to 0 just before
+    the call and read just after it: (result, counts, seconds)."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = fn(*args, **kwargs)
+    _sync(device)
+    return res, _all_counts(), time.perf_counter() - t0
+
+
+def _want(L: int, fwd: int = 0, dec: int = 0, bwd: int = 0) -> tuple:
+    """Expected counts in COUNT_NAMES' order for `fwd` trunk forwards,
+    `dec` single-token decode steps and `bwd` trunk backwards of L layers,
+    every K1-K3 launch on the tensor-core variant (bf16, Dh=64)."""
+    return (fwd * L, fwd * L, dec * L, bwd * L, bwd * L, bwd * L, bwd * L)
+
+
+def _path_counts(path: str, counts: tuple) -> dict:
+    return {f"{name}_{path}": n for name, n in zip(COUNT_NAMES, counts)}
+
+
+def _timed_steps(label: str, step, state, batch, want: tuple, device="cuda") -> dict:
+    """One warm-up, SLICE6_REPS steps each with its exact launch counts and
+    a finite loss, then one step under torch.profiler. Returns the last
+    step's counts, updates per second and peak memory."""
+    state, loss, _ = step(state, batch)
+    check(bool(torch.isfinite(loss)), f"{label}: warm-up loss {loss.item()}")
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t_all = time.perf_counter()
+    for i in range(SLICE6_REPS):
+        _reset_counts()
+        state, loss, logs = step(state, batch)
+        counts = _all_counts()
+        check(counts == want, f"{label} step {i}: {_fmt_counts(counts)}, want {want}")
+        losses.append(loss)
+    _sync(device)
+    dt = time.perf_counter() - t_all
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), f"{label}: losses {losses.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if torch.device(device).type == "cuda" else 0.0
+    ups = SLICE6_REPS / dt
+    log(f"{label}: {SLICE6_REPS} steps in {dt:.4f} s: updates_per_s={ups:.3f} "
+        f"tokens_per_s={ups * batch.input_ids.numel():.1f} peak_mem_gb={peak:.2f}; per step {_fmt_counts(counts)}; "
+        f"losses {[round(x, 4) for x in losses.tolist()]}; "
+        + " ".join(f"{k}={v.item():.4f}" for k, v in logs["losses"].items()))
+    profile_run(label, lambda: step(state, batch), dt / SLICE6_REPS)
+    return dict(counts=counts, updates_per_s=ups, peak_mem_gb=peak)
+
+
+def _compare_card_cpu(label: str, runs, names) -> None:
+    """Loss within STEP_LOSS_RTOL relative, each group's gradient within
+    STEP_GRAD_RTOL in relative norm (card first, CPU second in `runs`)."""
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    rel = {}
+    for name, ga, gb in zip(names, g_card, g_cpu):
+        num = sum(((ga[k] - gb[k]).double() ** 2).sum() for k in gb) ** 0.5
+        den = sum((gb[k].double() ** 2).sum() for k in gb) ** 0.5
+        rel[name] = float(num / den)
+    log(f"{label} card (f32, kernels) vs CPU (f32, plain), full width B=2 T=32: loss {l_card:.6f} vs {l_cpu:.6f} "
+        f"(rel {rel_loss:.2e}, tol {STEP_LOSS_RTOL}); gradient rel norm diff "
+        + " ".join(f"{k}={v:.2e}" for k, v in rel.items()) + f" (tol {STEP_GRAD_RTOL})")
+    check(rel_loss <= STEP_LOSS_RTOL, f"{label}: card vs CPU loss rel diff {rel_loss}")
+    for name, r in rel.items():
+        check(r <= STEP_GRAD_RTOL, f"{label}: card vs CPU {name} gradient rel diff {r}")
+
+
+def _mc_batch(device="cuda", b=TRAIN_B, t=TRAIN_T, seed=0) -> MCBatch:
+    """bench.py's token layout (actions on every other token) with a
+    reward-to-go in [-5, 0] on each action token."""
+    g = torch.Generator().manual_seed(seed)
+    sta = torch.zeros(b, t - 1, dtype=torch.bool)
+    sta[:, 1::2] = True
+    batch = MCBatch(torch.randint(1, 256, (b, t), generator=g), sta, -5.0 * torch.rand(b, t - 1, generator=g) * sta)
+    return MCBatch(*(x.to(device) for x in batch))
+
+
+def phase_mc(config, device="cuda") -> dict:
+    """Phase 3m: the MC-returns step at the ILQL step's operating point
+    (GPT-2-small, f32 parameters, bf16 activations, one MLP Q head, AdamW,
+    B=32, T=160), then one full-width f32 step on the card against the CPU."""
+    L = config.num_layers
+    base, q, _, _ = _train_modules(config, device)
+    state = MCTrainState(TrainState(base, adamw(1e-4)), TrainState(q, adamw(1e-3)))
+    step = make_mc_train_step(LMCore(config, device=device), MCConfig(), PAD_ID)
+    res = _timed_steps("MC step (3m)", step, state, _mc_batch(device), _want(L, fwd=1, bwd=1), device)
+    del state, base, q
+
+    cfg = config.replace(dtype="float32")
+    cpu_modules = _train_modules(cfg, "cpu", seed=5, layer2_initializer_range=None)[:2]
+    batch = _mc_batch("cpu", b=2, t=32, seed=1)
+    runs = []
+    for d in (device, "cpu"):
+        base, q = (copy.deepcopy(m).to(d) for m in cpu_modules)
+        _reset_counts()
+        loss, _ = mc_loss_from_params(LMCore(cfg, device=d), base, q, MCBatch(*(x.to(d) for x in batch)), MCConfig(),
+                                      PAD_ID, train=True)
+        grads = value_and_grads(loss, (base, q))
+        if d != "cpu":
+            check(_all_counts() == (L, 0, 0, L, 0, L, 0), f"f32 MC card step: {_fmt_counts(_all_counts())}")
+        runs.append((loss.item(), [{k: g.cpu() for k, g in group.items()} for group in grads]))
+    _compare_card_cpu("MC step", runs, ("base", "q"))
+    return {**_path_counts("mc_step", res["counts"]), "mc_updates_per_s": res["updates_per_s"]}
+
+
+def phase_cql(config, device="cuda") -> dict:
+    """Phase 3c: the CQL step at the ILQL step's operating point, with a
+    separate target base and a next window of 16 tokens, then one
+    full-width f32 step on the card against the CPU."""
+    L = config.num_layers
+    base, q1, q2, _ = _train_modules(config, device)
+    state = init_cql_state(base, q1, q2, adamw(1e-4), adamw(1e-3), CQLConfig())
+    step = make_cql_train_step(LMCore(config, device=device), CQLConfig(), PAD_ID)
+    # trained, target and next-window trunk forwards; one backward
+    res = _timed_steps("CQL step (3c)", step, state, _train_batch(device), _want(L, fwd=3, bwd=1), device)
+    del state, base, q1, q2
+
+    cfg = config.replace(dtype="float32")
+    cpu_modules = _train_modules(cfg, "cpu", seed=5, layer2_initializer_range=None)[:3]
+    batch = _train_batch("cpu", b=2, t=32, nt=8, seed=1)
+    runs = []
+    for d in (device, "cpu"):
+        state = init_cql_state(*(copy.deepcopy(m).to(d) for m in cpu_modules), adamw(1e-4), adamw(1e-3), CQLConfig())
+        _reset_counts()
+        loss, _ = cql_forward(LMCore(cfg, device=d), state.base.params, state.target_base_params, state.q1_head.params,
+                              state.q2_head.params, state.q1_target_params, state.q2_target_params,
+                              ILQLBatch(*(x.to(d) for x in batch)), CQLConfig(), PAD_ID, train=True)
+        grads = value_and_grads(loss, (state.base.params, state.q1_head.params, state.q2_head.params))
+        if d != "cpu":
+            check(_all_counts() == (3 * L, 0, 0, L, 0, L, 0), f"f32 CQL card step: {_fmt_counts(_all_counts())}")
+        runs.append((loss.item(), [{k: g.cpu() for k, g in group.items()} for group in grads]))
+        del state
+    _compare_card_cpu("CQL step", runs, ("base", "q1", "q2"))
+    return {**_path_counts("cql_step", res["counts"]), "cql_updates_per_s": res["updates_per_s"],
+            "cql_peak_mem_gb": res["peak_mem_gb"]}
+
+
+def _maze_config(tok):
+    """GPT-2-small's width over the byte tokenizer's vocab (259, padded to
+    320), as the JAX maze PPO gate sizes its model to its tokenizer."""
+    return gpt2_small().replace(vocab_size=tok.vocab_size, pad_vocab_to_multiple=64, embd_pdrop=0.0,
+                                resid_pdrop=0.0, attn_pdrop=0.0)
+
+
+def phase_ppo(device="cuda", config=None) -> dict:
+    """Phase 3p: one PPO round on the maze at GPT-2-small width: LMServer
+    rollouts through `GenerationPolicy` and `text_env_eval` (PPO_EPISODES
+    episodes at batch PPO_BSIZE), `get_ppo_data_from_chains` through
+    `make_ppo_forward_fn`, `block_ppo_data`, then PPO steps at B=32 without
+    and with the BC term."""
+    tok = ByteTokenizer()
+    config = config or _maze_config(tok)
+    L, pad = config.num_layers, tok.pad_token_id
+    core = LMCore(config, device=device)
+    policy = init_params(config, seed=20, device=device)
+    init_policy = copy.deepcopy(policy).requires_grad_(False)
+    value_head = LinearHead(LinearHeadConfig(config.hidden_size, 1), device=device, seed=21)
+    server = LMServer(core, tok)
+    sampling = SamplingConfig(max_new_tokens=MAZE_NEW, temperature=1.0, eos_token_id=10, pad_token_id=pad)
+    turns = []
+
+    def generate_batch(prompts, generator):
+        res, counts, s = _counted(server.generate_from_strs, policy, prompts, MAZE_LEN, sampling, generator,
+                                  device=device)
+        turns.append(dict(n=len(prompts), counts=counts, s=s))
+        return res
+
+    env = build_maze_env(max_steps=PPO_MAX_STEPS)
+    pol = GenerationPolicy(generate_batch, torch.Generator(device=device).manual_seed(13))
+    t0 = time.perf_counter()
+    interactions, summary = text_env_eval(env, pol, n_rollouts=PPO_EPISODES,
+                                          seed_generator=iter(range(PPO_EPISODES)), bsize=PPO_BSIZE)
+    t_roll = time.perf_counter() - t0
+    check(len(interactions) == PPO_EPISODES and all(g and g[-1].done for g in interactions),
+          f"PPO rollout: {len(interactions)} episodes, not all done")
+    for i, turn in enumerate(turns):
+        check(turn["counts"] == _want(L, fwd=1, dec=MAZE_NEW), f"PPO rollout turn {i}: {_fmt_counts(turn['counts'])}")
+    log(f"PPO rollout (3p): {PPO_EPISODES} maze episodes at batch {PPO_BSIZE} in {t_roll:.3f} s over {len(turns)} "
+        f"LMServer calls (per call {_fmt_counts(turns[0]['counts'])}, median {sorted(t['s'] for t in turns)[len(turns) // 2]:.4f} s); "
+        f"return mean {summary['reward']['mean']:.2f} length mean {summary['length']['mean']:.2f}")
+    if torch.device(device).type == "cuda":
+        hist = [tr.pre_action_history for tr in interactions[0][:1]] * PPO_BSIZE
+        profile_run("PPO rollout turn (LMServer, B=16)", lambda: generate_batch(
+            [text_history_to_str(h) for h in hist], torch.Generator(device=device).manual_seed(14)), turns[0]["s"])
+
+    chains = []
+    for game in interactions:  # per-step Markov windows, chained, as the JAX maze PPO gate builds them
+        chain = None
+        for tr in reversed(game):
+            chain = TextTrajectoryChain(TextTrajectory((tr.pre_action_history[-1], tr.post_action_history[-1]),
+                                                       (0.0, tr.reward), tr.done), chain)
+        chains.append(TokenTrajectoryChain.from_text_trajectory_chain(chain, tok))
+    forward_fn = make_ppo_forward_fn(core, init_policy, policy, value_head, pad)
+    fwd_calls = []
+
+    def traced_forward(tokens):
+        res, counts, s = _counted(forward_fn, tokens, device=device)
+        fwd_calls.append(dict(counts=counts, s=s))
+        return res
+
+    t0 = time.perf_counter()
+    datas, kls = get_ppo_data_from_chains(traced_forward, tok, chains, TRAIN_B, MAZE_LEN, gamma=0.99, lam=0.95,
+                                          kl_weight=0.01)
+    t_data = time.perf_counter() - t0
+    for i, call in enumerate(fwd_calls):
+        check(call["counts"] == _want(L, fwd=2), f"PPO forward call {i}: {_fmt_counts(call['counts'])}")
+    check(len(kls) > 0 and bool(np.isfinite(kls).all()), "PPO data: KL estimates not finite")
+    for d in datas:
+        check(all(bool(np.isfinite(getattr(d, f)).all()) for f in ("old_logprobs", "old_values", "old_advantages",
+                                                                   "old_returns")), "PPO data: a non-finite value")
+    blocked = block_ppo_data(datas, BlockingStrategy(Padding.RIGHT, Truncation.RIGHT, MAZE_LEN), pad)
+    log(f"PPO data (3p): {len(datas)} windows from {len(chains)} chains in {t_data:.3f} s over {len(fwd_calls)} "
+        f"forward calls (per call {_fmt_counts(fwd_calls[0]['counts'])}); mean KL {float(np.mean(kls)):.3e}; "
+        f"blocked {tuple(blocked['input_ids'].shape)}")
+
+    state = PPOTrainState(TrainState(policy, adamw(1e-5)), TrainState(value_head, adamw(1e-4)))
+    w0 = (policy.ln_f.weight.detach().clone(), value_head.dense.weight.detach().clone())
+    n = blocked["input_ids"].shape[0]
+    check(n >= 4 * TRAIN_B, f"PPO data: {n} windows, want at least {4 * TRAIN_B}")
+    out = _path_counts("ppo_rollout_turn", turns[0]["counts"])
+    out.update(_path_counts("ppo_forward", fwd_calls[0]["counts"]))
+    for j, bc_weight in enumerate((0.0, 0.5)):
+        step = make_ppo_train_step(core, PPOConfig(gamma=0.99, lam=0.95, bc_loss_weight=bc_weight), pad)
+        for i in range(2):
+            rows = slice((2 * j + i) * TRAIN_B, (2 * j + i + 1) * TRAIN_B)
+            t = {k: torch.from_numpy(v[rows]).to(device) for k, v in blocked.items()}
+            bc = {}
+            if bc_weight:
+                mask = torch.cat((torch.zeros_like(t["should_take_action"][:, :1]), t["should_take_action"]), 1)
+                bc = dict(bc_input_ids=t["input_ids"].long(), bc_training_mask=mask.float())
+            batch = PPOBatch(t["input_ids"].long(), t["should_take_action"], t["old_logprobs"], t["old_values"],
+                             t["old_advantages"], t["old_returns"], **bc)
+            (state, loss, logs), counts, s = _counted(step, state, batch, device=device)
+            want = _want(L, fwd=2, bwd=2) if bc_weight else _want(L, fwd=1, bwd=1)
+            check(counts == want, f"PPO step bc={bc_weight} {i}: {_fmt_counts(counts)}, want {want}")
+            kl, vals = logs["policy"]["approx_kl"].item(), logs["values"]["mean"].item()
+            check(all(math.isfinite(x) for x in (loss.item(), kl, vals)), f"PPO step: loss {loss.item()} kl {kl} values {vals}")
+            log(f"PPO step (3p) bc_weight={bc_weight} {i}: {s:.4f} s, {_fmt_counts(counts)}, loss {loss.item():.4f} "
+                f"approx_kl {kl:.3e} values~{vals:.3f}" + (f" bc_loss {logs['bc_loss'].item():.4f}" if bc_weight else ""))
+        out.update(_path_counts("ppo_step_bc" if bc_weight else "ppo_step", counts))
+        if torch.device(device).type == "cuda":
+            profile_run(f"PPO step bc_weight={bc_weight}", lambda: step(state, batch), s)
+    check(not torch.equal(w0[0], policy.ln_f.weight) and not torch.equal(w0[1], value_head.dense.weight),
+          "PPO steps: the policy or the value head did not move")
+    return {**out, "policy": policy, "config": config}
+
+
+def phase_rerank(policy, config, device="cuda") -> dict:
+    """Phase 3r: `ReRankerPolicy` over the maze's four move proposals in
+    every cell, scored at GPT-2-small width by `make_ilql_score_fn` (twin Q
+    and V; then with a π_β trunk and `logit_weight`) and `make_mc_score_fn`
+    (twin Q, mean over the action tokens)."""
+    tok = ByteTokenizer()
+    L, D = config.num_layers, config.hidden_size
+    core = LMCore(config, device=device)
+    q_cfg = MLPHeadConfig(D, 2 * D, config.padded_vocab_size)
+    q1, q2 = MLPHead(q_cfg, device=device, seed=31), MLPHead(q_cfg, device=device, seed=32)
+    v = MLPHead(MLPHeadConfig(D, 2 * D, 1), device=device, seed=33)
+    pi_beta = init_params(config, seed=34, device=device)
+    maze = double_t_maze()
+    cases = (
+        ("ilql", make_ilql_score_fn(core, ValueRLParams(None, policy, q1, q2, v), tok.pad_token_id), 1),
+        ("ilql+pi_beta", make_ilql_score_fn(core, ValueRLParams(pi_beta, policy, q1, q2, v), tok.pad_token_id,
+                                            logit_weight=1.0), 2),
+        ("mc", make_mc_score_fn(core, ValueRLParams(None, policy, q1, q2, None), tok.pad_token_id,
+                                length_normalize=True), 1),
+    )
+    out = {}
+    for name, score, n_trunks in cases:
+        calls = []
+
+        def score_batch(histories):
+            ids, am = tokenize_histories_for_scoring(histories, tok, MAZE_LEN, device=device)
+            res, counts, s = _counted(score, ids, am, device=device)
+            calls.append(dict(counts=counts, s=s, n=len(histories), ids=ids, am=am))
+            return res.cpu().numpy()
+
+        reranker = ReRankerPolicy(proposal_fn=lambda h: [h + (Text(a, True),) for a in ACTION_STRS],
+                                  score_batch=score_batch)
+        acc, per_cell = per_cell_optimal_move_accuracy(lambda hs: reranker.act(hs), maze, (8, 6))
+        check(0.0 <= acc <= 1.0 and all(a in ACTION_STRS for a, _ in per_cell.values()),
+              f"rerank {name}: an action outside the proposals")
+        for i, call in enumerate(calls):
+            check(call["counts"] == _want(L, fwd=n_trunks), f"rerank {name} call {i}: {_fmt_counts(call['counts'])}")
+        log(f"rerank (3r) {name}: accuracy {acc:.3f} over {len(per_cell)} cells, {len(calls)} score calls of "
+            f"{calls[0]['n']} proposals, {calls[0]['s']:.4f} s, {_fmt_counts(calls[0]['counts'])}")
+        if torch.device(device).type == "cuda":
+            profile_run(f"score call {name}", lambda: score(calls[0]["ids"], calls[0]["am"]), calls[0]["s"])
+        out.update(_path_counts("score_call" if name == "ilql" else f"score_call_{name.replace('+', '_')}",
+                                calls[0]["counts"]))
+    return out
+
+
+def phase_maze_gate(device="cuda", extra=()) -> dict:
+    """Phase 3z: the port's maze gate at its own width (d256 L4 H4, byte
+    vocab) and a cut budget (MAZE_GATE_ARGS), --algo cql then --algo mc:
+    exact launch counts for the budget and accuracies in [0, 1]."""
+    args = maze_ilql_gate.parse_args(MAZE_GATE_ARGS + list(extra) + ["--device", device])
+    L = args.layers
+    chains = generate_maze_chains(args.n_chains, seed=args.seed, p_optimal=args.p_optimal, wrong_bias=True)
+    n_windows = sum(len(c.to_list()) for c in chains)
+    n_batches = -(-n_windows // args.bsize)
+    n_evals = len([e for e in range(1, args.ilql_epochs + 1) if e % args.eval_every == 0 or e == args.ilql_epochs])
+    out = {}
+    for algo, value_fwd in (("cql", 3), ("mc", 1)):
+        bc = _want(L, fwd=n_batches * args.bc_epochs, bwd=n_batches * args.bc_epochs)
+        bc_eval = _want(L, fwd=1, dec=MAZE_NEW)  # LMServer over the 25 cells
+        value = _want(L, fwd=value_fwd * n_batches * args.ilql_epochs, bwd=n_batches * args.ilql_epochs)
+        # per eval: the two-trunk legal-set guided decode, two reranker score calls
+        evals = _want(L, fwd=n_evals * (2 + 2), dec=n_evals * 2 * MAZE_NEW)
+        want = tuple(sum(x) for x in zip(bc, bc_eval, value, evals))
+        g = maze_ilql_gate.Gate(maze_ilql_gate.parse_args(MAZE_GATE_ARGS + list(extra) + ["--algo", algo,
+                                                                                           "--device", device]))
+        result, counts, s = _counted(maze_ilql_gate.run, g, device=device)
+        check(counts == want, f"maze gate {algo}: {_fmt_counts(counts)}, want {want}")
+        accs = [result["bc_acc"]] + [c[k] for c in result["curve"][1:] for k in ("acc", "rerank_acc", "target_rerank_acc")]
+        check(len(result["curve"]) == 1 + n_evals and all(0.0 <= a <= 1.0 for a in accs),
+              f"maze gate {algo}: curve {result['curve']}")
+        log(f"maze gate (3z) --algo {algo} ({' '.join(MAZE_GATE_ARGS + list(extra))}): {s:.1f} s, {n_windows} windows, "
+            f"{n_batches} batches per epoch, {_fmt_counts(counts)}; curve {result['curve']}")
+        out.update(_path_counts(f"maze_gate_{algo}", counts))
+        out[f"maze_gate_{algo}_s"] = s
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
@@ -1209,6 +1683,14 @@ def main() -> int:
         launches.update(phase_online(launches["config"]))
         launches.update(phase_gate())
         launches.update(phase_text_env(launches["serving"], launches["config"]))
+        t_slice6 = time.perf_counter()
+        launches.update(phase_mc(launches["config"]))
+        launches.update(phase_cql(launches["config"]))
+        ppo = phase_ppo()
+        launches.update(phase_rerank(ppo.pop("policy"), ppo.pop("config")))
+        launches.update(ppo)
+        launches.update(phase_maze_gate())
+        log(f"phases 3m, 3c, 3p, 3r, 3z: {time.perf_counter() - t_slice6:.1f} s")
         phase_card_vs_cpu(launches["base"], launches["config"])
         phase_train_card_vs_cpu(launches["config"])
     except SmokeFailure as e:
@@ -1254,7 +1736,9 @@ def main() -> int:
                      pair_plus_delta_ms=shapes[name]["pair_plus_delta_ms"])
     # each kernel's launches on the later paths
     for entry in kernels:
-        for path in ("online_round", "online_step", "gate", "text_env_turn"):
+        for path in ("online_round", "online_step", "gate", "text_env_turn", "mc_step", "cql_step", "ppo_step",
+                     "ppo_step_bc", "ppo_forward", "ppo_rollout_turn", "score_call", "score_call_ilql_pi_beta",
+                     "score_call_mc", "maze_gate_cql", "maze_gate_mc"):
             if f"{entry['name']}_{path}" in launches:
                 entry[f"launches_{path}"] = launches[f"{entry['name']}_{path}"]
             if f"{entry['name']}_tc_{path}" in launches:

@@ -232,21 +232,23 @@ def ilql_loss_and_grads(
     return loss.detach(), detach_logs(logs), grads
 
 
+def update_target(train_state: TrainState, target: nn.Module, config) -> None:
+    """Polyak on every real update (not on grad-accumulation mini steps),
+    then the optional periodic hard update on the new step count; `config`
+    carries `polyak_alpha` and `hard_update_every` (ILQL's or CQL's)."""
+    mini = mini_step_of(train_state.opt_state)
+    if mini is not None and mini != 0:
+        return
+    incremental_update(train_state.params, target, config.polyak_alpha)
+    if config.hard_update_every is not None:
+        periodic_update(train_state.params, target, train_state.step, config.hard_update_every)
+
+
 def make_ilql_train_step(
     core: LMCore, config: ILQLConfig, pad_token_id: int
 ) -> Callable[[ILQLTrainState, ILQLBatch, Optional[torch.Generator]], Tuple[ILQLTrainState, torch.Tensor, Any]]:
     """step(state, batch, generator=None) → (state, loss, logs); the state is
     updated in place. `generator` draws the dropout masks."""
-
-    def update_targets(train_state: TrainState, target: nn.Module) -> None:
-        # Polyak on every real update (not on grad-accumulation mini steps),
-        # then the optional periodic hard update on the new step count
-        mini = mini_step_of(train_state.opt_state)
-        if mini is not None and mini != 0:
-            return
-        incremental_update(train_state.params, target, config.polyak_alpha)
-        if config.hard_update_every is not None:
-            periodic_update(train_state.params, target, train_state.step, config.hard_update_every)
 
     def step(state: ILQLTrainState, batch: ILQLBatch, generator: Optional[torch.Generator] = None):
         loss, logs, (base_g, q1_g, q2_g, v_g) = ilql_loss_and_grads(core, state, batch, config, pad_token_id, generator)
@@ -255,9 +257,9 @@ def make_ilql_train_step(
         state.q2_head.apply_gradients(q2_g)
         state.v_head.apply_gradients(v_g)
         if state.target_base_params is not None:
-            update_targets(state.base, state.target_base_params)
-        update_targets(state.q1_head, state.q1_target_params)
-        update_targets(state.q2_head, state.q2_target_params)
+            update_target(state.base, state.target_base_params, config)
+        update_target(state.q1_head, state.q1_target_params, config)
+        update_target(state.q2_head, state.q2_target_params, config)
         return state, loss, logs
 
     return step

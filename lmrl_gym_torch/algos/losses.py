@@ -1,6 +1,7 @@
-"""Loss functions of the ILQL and BC train steps: the port of
+"""Loss functions of every algorithm: the port of
 `lmrl_gym_tpu/algos/losses.py` (`select_at_mask`, `next_state_mask`,
-`ilql_loss`, `masked_lm_loss`).
+`ilql_loss`, `cql_loss`, `mc_loss`, `ppo_loss`, `masked_lm_loss`, `whiten`,
+`gae_advantages_and_returns`, `reward_to_go`).
 
 Shift conventions as in the JAX package: values q/v are model outputs at
 positions x[:-1]; token_ids / should_take_action / rewards are shifted
@@ -10,7 +11,7 @@ the card.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -134,6 +135,143 @@ def ilql_loss(
     return loss, logs
 
 
+def cql_loss(
+    q1: torch.Tensor,
+    q2: torch.Tensor,
+    target_q1: torch.Tensor,
+    target_q2: torch.Tensor,
+    target_q1_final: torch.Tensor,  # [batch]
+    target_q2_final: torch.Tensor,  # [batch]
+    q1_logits: torch.Tensor,
+    q2_logits: torch.Tensor,
+    token_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    should_take_action: torch.Tensor,
+    rewards: torch.Tensor,
+    *,
+    gamma: Scalar,
+    cql_weight: Scalar,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """SARSA-style CQL: ILQL without the V head — the Bellman target is the
+    min over the target Qs at the next action."""
+    mask = should_take_action.float() * attention_mask
+    n = torch.clamp(mask.sum(), min=1.0)
+
+    sta_flat = should_take_action.reshape(-1)
+    q1_sel, a_mask = select_at_mask(q1.reshape(-1), sta_flat)
+    q2_sel, _ = select_at_mask(q2.reshape(-1), sta_flat)
+    r_sel, _ = select_at_mask(rewards.reshape(-1), sta_flat)
+
+    tq1_flat = torch.cat((target_q1, target_q1_final[:, None]), dim=1).reshape(-1)
+    tq2_flat = torch.cat((target_q2, target_q2_final[:, None]), dim=1).reshape(-1)
+    ns_flat = next_state_mask(should_take_action).reshape(-1)
+    tq1ns_sel, ans_mask = select_at_mask(tq1_flat, ns_flat)
+    tq2ns_sel, _ = select_at_mask(tq2_flat, ns_flat)
+    tq1ns_sel = tq1ns_sel[: q1_sel.shape[0]]
+    tq2ns_sel = tq2ns_sel[: q1_sel.shape[0]]
+    ans_mask = ans_mask[: q1_sel.shape[0]]
+
+    target_qns = torch.minimum(tq1ns_sel, tq2ns_sel)
+    target = (r_sel + gamma * target_qns).detach()
+    q1_loss = (l2_loss(q1_sel, target) * a_mask).sum() / n
+    q2_loss = (l2_loss(q2_sel, target) * a_mask).sum() / n
+
+    q1_cql = (mask * softmax_cross_entropy_with_integer_labels(q1_logits, token_ids)).sum() / n
+    q2_cql = (mask * softmax_cross_entropy_with_integer_labels(q2_logits, token_ids)).sum() / n
+
+    loss = q1_loss + q2_loss + cql_weight * (q1_cql + q2_cql)
+    logs = dict(
+        losses=dict(total_loss=loss, q1_loss=q1_loss, q2_loss=q2_loss, q1_cql_loss=q1_cql, q2_cql_loss=q2_cql),
+        q1=get_tensor_stats(q1_sel, mask=a_mask, n=n),
+        q2=get_tensor_stats(q2_sel, mask=a_mask, n=n),
+        target_qns=get_tensor_stats(target_qns, mask=ans_mask, n=n),
+        rewards=get_tensor_stats(rewards, mask=mask, n=n),
+    )
+    return loss, logs
+
+
+def mc_loss(
+    q: torch.Tensor,
+    q_logits: torch.Tensor,
+    token_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    should_take_action: torch.Tensor,
+    returns: torch.Tensor,
+    *,
+    cql_weight: Scalar,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Reward-to-go Q regression plus the CQL cross-entropy."""
+    mask = should_take_action.float() * attention_mask
+    n = torch.clamp(mask.sum(), min=1.0)
+
+    sta_flat = should_take_action.reshape(-1)
+    q_sel, a_mask = select_at_mask(q.reshape(-1), sta_flat)
+    ret_sel, _ = select_at_mask(returns.reshape(-1), sta_flat)
+
+    q_loss = (l2_loss(q_sel, ret_sel.detach()) * a_mask).sum() / n
+    q_cql = (mask * softmax_cross_entropy_with_integer_labels(q_logits, token_ids)).sum() / n
+
+    loss = q_loss + cql_weight * q_cql
+    logs = dict(
+        losses=dict(total_loss=loss, q_loss=q_loss, q_cql_loss=q_cql),
+        q=get_tensor_stats(q_sel, mask=a_mask, n=n),
+        returns=get_tensor_stats(ret_sel, mask=a_mask, n=n),
+    )
+    return loss, logs
+
+
+def ppo_loss(
+    attention_mask: torch.Tensor,
+    logprobs: torch.Tensor,
+    values: torch.Tensor,
+    should_take_action: torch.Tensor,
+    old_logprobs: torch.Tensor,
+    old_values: torch.Tensor,
+    old_advantages: torch.Tensor,
+    old_returns: torch.Tensor,
+    *,
+    cliprange_value: Scalar,
+    cliprange: Scalar,
+    value_loss_coef: Scalar,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Clipped PPO objective over action tokens (trlx-derived)."""
+    mask = should_take_action.float() * attention_mask
+    n = torch.clamp(mask.sum(), min=1.0)
+
+    values_clipped = torch.clamp(values, old_values - cliprange_value, old_values + cliprange_value)
+    vf_loss1 = (values - old_returns) ** 2
+    vf_loss2 = (values_clipped - old_returns) ** 2
+    vf_loss = 0.5 * torch.sum(torch.maximum(vf_loss1, vf_loss2) * mask) / n
+    vf_clipfrac = torch.sum((vf_loss2 > vf_loss1).float() * mask) / n
+
+    log_ratio = (logprobs - old_logprobs) * mask
+    ratio = torch.exp(log_ratio)
+    # k3 unbiased KL estimate (http://joschu.net/blog/kl-approx.html)
+    approx_kl = torch.sum((ratio - 1) - log_ratio) / n
+
+    pg_loss1 = -old_advantages * ratio
+    pg_loss2 = -old_advantages * torch.clamp(ratio, 1.0 - cliprange, 1.0 + cliprange)
+    pg_loss = torch.sum(torch.maximum(pg_loss1, pg_loss2) * mask) / n
+    pg_clipfrac = torch.sum((pg_loss2 > pg_loss1).float() * mask) / n
+
+    loss = pg_loss + value_loss_coef * vf_loss
+
+    logs = dict(
+        losses=dict(total_loss=loss, policy_loss=pg_loss, value_loss=vf_loss),
+        values=dict(
+            get_tensor_stats(values, mask, n),
+            values_error=torch.sum(((values - old_returns) * mask) ** 2) / n,
+            clipfrac=vf_clipfrac,
+        ),
+        old_values=get_tensor_stats(old_values, mask, n),
+        returns=get_tensor_stats(old_returns, mask, n),
+        policy=dict(approx_kl=approx_kl, clipfrac=pg_clipfrac),
+        ratio=(ratio * mask).sum() / n,
+        padding_percentage=n / mask.numel(),
+    )
+    return loss, logs
+
+
 def masked_lm_loss(
     logits: torch.Tensor,  # [b, t, vocab] (positions x[:-1])
     target_ids: torch.Tensor,  # [b, t] (x[1:])
@@ -148,3 +286,52 @@ def masked_lm_loss(
     weights = training_mask + (1 - training_mask) * non_train_weight
     loss = (token_losses * weights).sum() / torch.clamp(attention_mask.sum(), min=1)
     return loss, {"loss": loss}
+
+
+def whiten(xs: torch.Tensor, mask: Optional[torch.Tensor] = None, shift_mean: bool = True) -> torch.Tensor:
+    """Normalize to unit variance; without a mask the variance has ddof 0,
+    as `jnp.var`."""
+    if mask is None:
+        mean, var = xs.mean(), xs.var(unbiased=False)
+    else:
+        n = torch.clamp(mask.sum(), min=1)
+        mean = (xs * mask).sum() / n
+        var = (((xs - mean) ** 2) * mask).sum() / n
+    out = (xs - mean) * torch.rsqrt(var + 1e-8)
+    if not shift_mean:
+        out = out + mean
+    return out
+
+
+def gae_advantages_and_returns(
+    state_values: torch.Tensor,  # [b, n] per action position
+    next_state_values: torch.Tensor,  # [b, n]
+    action_rewards: torch.Tensor,  # [b, n]
+    *,
+    gamma: Scalar,
+    lam: Scalar,
+    use_whitening: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GAE over action positions: the JAX package's reverse `lax.scan` as a
+    reversed loop over the action axis, in the scan's order of sums."""
+    delta = action_rewards + gamma * next_state_values - state_values
+    advantages = torch.zeros_like(state_values)
+    lastgaelam = torch.zeros_like(state_values[:, 0])
+    for t in reversed(range(state_values.shape[1])):
+        lastgaelam = delta[:, t] + gamma * lam * lastgaelam
+        advantages[:, t] = lastgaelam
+    returns = advantages + state_values
+    if use_whitening:
+        advantages = whiten(advantages)
+    return advantages, returns
+
+
+def reward_to_go(action_rewards: torch.Tensor, *, gamma: Scalar) -> torch.Tensor:
+    """Discounted reward-to-go over action positions [b, n] → [b, n], a
+    reversed loop over the action axis (the JAX package's reverse scan)."""
+    rtg = torch.zeros_like(action_rewards)
+    acc = torch.zeros_like(action_rewards[:, 0])
+    for t in reversed(range(action_rewards.shape[1])):
+        acc = action_rewards[:, t] + gamma * acc
+        rtg[:, t] = acc
+    return rtg

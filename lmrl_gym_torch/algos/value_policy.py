@@ -1,6 +1,8 @@
-"""Serving path: value-guided and plain-LM decoding, and the text policy
-over them. The port of `lmrl_gym_tpu/algos/value_policy.py`
-(`ValueGuidedServer`, `LMServer`, `GenerationPolicy`).
+"""Serving path: value-guided and plain-LM decoding, the text policy over
+them, and word-level reranking. The port of
+`lmrl_gym_tpu/algos/value_policy.py` (`ValueGuidedServer`, `LMServer`,
+`GenerationPolicy`, the score functions, `ReRankerPolicy` and
+`tokenize_histories_for_scoring`).
 
 `ValueGuidedServer.generate` decodes with logits = π_β + β·min(q1,q2)
 (the reference's value_rl_base/gpt2/generation.py:36-121): both trunks run
@@ -14,8 +16,8 @@ legal proposal set (`models/generation.py::generate_constrained`).
 In the port, parameters live in modules: `ValueRLParams` carries the trunk
 `Transformer`s and the head modules themselves, so the server needs no
 separate head definitions. The JAX package's batch bucketing
-(`_bucket_batch`) only bounded jit recompiles and has no counterpart in
-eager PyTorch.
+(`_bucket_batch`) and score-program memo (`_memoized_score_jit`) only
+bounded jit recompiles and have no counterpart in eager PyTorch.
 """
 from __future__ import annotations
 
@@ -32,11 +34,12 @@ from lmrl_gym_torch.core.blocking import (
     block_sequences,
     strip_prompt_from_completion,
 )
+from lmrl_gym_torch.core.device import DeviceLike, resolve_device
 from lmrl_gym_torch.envs.base import BatchedTextPolicy
 from lmrl_gym_torch.models.generation import SamplingConfig, generate, generate_constrained
-from lmrl_gym_torch.models.interface import LMCore, pad_mask_to, cached_positions
+from lmrl_gym_torch.models.interface import LMCore, cached_positions, initialize_attn_mask_pos_ids, pad_mask_to
 from lmrl_gym_torch.models.transformer import KVCache, mask_pad_logits
-from lmrl_gym_torch.text.frames import Text, TextHistory, text_history_to_str
+from lmrl_gym_torch.text.frames import Text, TextHistory, TokenHistory, text_history_to_str
 
 
 def _encode_prompts(tok, prompts: Sequence[str], max_input_length: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -254,3 +257,149 @@ class GenerationPolicy(BatchedTextPolicy):
             out = proc_out(strip_prompt_from_completion(prompt, raw_out))
             results[i] = text_history[i] + (Text(out, True),)
         return results
+
+
+# ---------------- rerankers ----------------
+
+
+def score_action_tokens(
+    values: torch.Tensor,  # [b, t-1] per-token scores at positions x[:-1]
+    should_take_action: torch.Tensor,  # [b, t-1]
+    attention_mask: torch.Tensor,  # [b, t-1]
+) -> torch.Tensor:
+    """Σ over action tokens → [b]."""
+    mask = should_take_action.float() * attention_mask
+    return (values * mask).sum(dim=1)
+
+
+def _gather_next(out: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
+    return torch.gather(out[:, :-1], 2, nxt).squeeze(2)
+
+
+def _action_count(action_mask: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    return torch.clamp((action_mask[:, 1:].float() * attention_mask[:, 1:].float()).sum(dim=1), min=1.0)
+
+
+def make_ilql_score_fn(
+    core: LMCore,
+    params: ValueRLParams,
+    pad_token_id: int,
+    value_weight: float = 1.0,
+    logit_weight: Optional[float] = None,
+    length_normalize: bool = False,
+):
+    """score = Σ_action value_weight·(min(Q1,Q2)−V) + logit_weight·logπ_β.
+
+    length_normalize divides by the action-token count (mean advantage),
+    the length-independent analogue of the raw Σ. One trunk forward, and a
+    second on π_β when `logit_weight` is set and `params.pi_beta` is."""
+
+    def score(input_ids: torch.Tensor, action_mask: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            attention_mask, position_ids = initialize_attn_mask_pos_ids(input_ids, pad_token_id)
+            _, hidden = core.forward(params.base, input_ids, attention_mask, position_ids)
+            nxt = input_ids[:, 1:, None].long()
+            q = _gather_next(params.q1_head(hidden), nxt)
+            if params.q2_head is not None:
+                q = torch.minimum(q, _gather_next(params.q2_head(hidden), nxt))
+            v = params.v_head(hidden)[:, :-1].squeeze(2)
+            total = value_weight * (q - v)
+            if logit_weight is not None and params.pi_beta is not None:
+                logits, _ = core.forward(params.pi_beta, input_ids, attention_mask, position_ids)
+                logprobs = torch.log_softmax(mask_pad_logits(logits[:, :-1].float(), core.config.vocab_size), dim=-1)
+                total = total + logit_weight * torch.gather(logprobs, 2, nxt).squeeze(2)
+            out = score_action_tokens(total, action_mask[:, 1:], attention_mask[:, 1:].float())
+            if length_normalize:
+                out = out / _action_count(action_mask, attention_mask)
+            return out
+
+    return score
+
+
+def make_mc_score_fn(core: LMCore, params: ValueRLParams, pad_token_id: int, length_normalize: bool = False):
+    """score = Σ_action Q; with a twin-Q bundle (`q2_head` set, the CQL
+    case) Σ min(Q1,Q2). length_normalize divides by the action-token count
+    (mean Q): with Q < 0 the raw Σ favors proposals of fewer tokens."""
+
+    def score(input_ids: torch.Tensor, action_mask: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            attention_mask, position_ids = initialize_attn_mask_pos_ids(input_ids, pad_token_id)
+            _, hidden = core.forward(params.base, input_ids, attention_mask, position_ids)
+            nxt = input_ids[:, 1:, None].long()
+            q = _gather_next(params.q1_head(hidden), nxt)
+            if params.q2_head is not None:
+                q = torch.minimum(q, _gather_next(params.q2_head(hidden), nxt))
+            total = score_action_tokens(q, action_mask[:, 1:], attention_mask[:, 1:].float())
+            if length_normalize:
+                total = total / _action_count(action_mask, attention_mask)
+            return total
+
+    return score
+
+
+def make_logprob_score_fn(core: LMCore, params, pad_token_id: int):
+    """score = Σ_action logπ (the BC/PPO reranker); `params` is the
+    policy's `Transformer`."""
+
+    def score(input_ids: torch.Tensor, action_mask: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            attention_mask, position_ids = initialize_attn_mask_pos_ids(input_ids, pad_token_id)
+            logits, _ = core.forward(params, input_ids, attention_mask, position_ids)
+            logprobs = torch.log_softmax(mask_pad_logits(logits[:, :-1].float(), core.config.vocab_size), dim=-1)
+            logpi = torch.gather(logprobs, 2, input_ids[:, 1:, None].long()).squeeze(2)
+            return score_action_tokens(logpi, action_mask[:, 1:], attention_mask[:, 1:].float())
+
+    return score
+
+
+@dataclass
+class ReRankerPolicy(BatchedTextPolicy):
+    """Score a fixed proposal set per history and pick the argmax (or sample
+    at `temperature`). `proposal_fn(history) -> [history+action]`;
+    `score_batch(histories) -> scores`."""
+
+    proposal_fn: Callable[[TextHistory], List[TextHistory]]
+    score_batch: Callable[[List[TextHistory]], np.ndarray]
+    sample: bool = False
+    temperature: float = 1.0
+    rng: Optional[np.random.Generator] = None
+
+    def act(self, text_history, done=None):
+        if done is None:
+            done = [False] * len(text_history)
+        results: List[Optional[TextHistory]] = [None] * len(text_history)
+        live = [i for i, d in enumerate(done) if not d]
+        if not live:
+            return results
+        all_proposals: List[TextHistory] = []
+        spans = []
+        for i in live:
+            props = self.proposal_fn(text_history[i])
+            spans.append((len(all_proposals), len(all_proposals) + len(props)))
+            all_proposals.extend(props)
+        scores = np.asarray(self.score_batch(all_proposals))
+        for i, (s, e) in zip(live, spans):
+            sub = scores[s:e]
+            if self.sample:
+                rng = self.rng or np.random.default_rng()
+                z = sub / self.temperature
+                p = np.exp(z - z.max())
+                p /= p.sum()
+                choice = rng.choice(len(sub), p=p)
+            else:
+                choice = int(np.argmax(sub))
+            results[i] = all_proposals[s + choice]
+        return results
+
+
+def tokenize_histories_for_scoring(
+    histories: List[TextHistory], tokenizer, max_length: int, device: DeviceLike = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (input_ids [b,t], action_mask [b,t]) on `device` (the card unless
+    the caller asks for the CPU); padded RIGHT, truncated LEFT."""
+    token_histories = [TokenHistory.from_text_history(h, tokenizer) for h in histories]
+    strategy = BlockingStrategy(Padding.RIGHT, Truncation.LEFT, max_length)
+    ids = block_sequences([th.tokens for th in token_histories], tokenizer.pad_token_id, np.int64, strategy)
+    am = block_sequences([th.is_action for th in token_histories], False, np.bool_, strategy)
+    device = resolve_device(device)
+    return torch.from_numpy(ids).to(device), torch.from_numpy(am).to(device)

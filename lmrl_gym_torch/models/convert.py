@@ -89,12 +89,49 @@ def ilql_state_from_jax(
         raise ValueError("the JAX and the port state disagree on use_separate_target_base")
     if target_base is not None:
         state.target_base_params.load_state_dict(params_from_jax(target_base, config))
-    for module, tree in (
-        (state.q1_head.params, q1),
-        (state.q2_head.params, q2),
-        (state.v_head.params, v),
-        (state.q1_target_params, q1_target),
-        (state.q2_target_params, q2_target),
-    ):
+    _load_heads([(state.q1_head.params, q1), (state.q2_head.params, q2), (state.v_head.params, v),
+                 (state.q1_target_params, q1_target), (state.q2_target_params, q2_target)])
+    return state
+
+
+def _load_heads(pairs) -> None:
+    for module, tree in pairs:
         module.load_state_dict(head_params_from_jax(tree))
+
+
+def mc_state_from_jax(state, config: TransformerConfig, base: Mapping, q: Mapping):
+    """A JAX `MCTrainState`'s parameter trees (as numpy) into a port
+    `MCTrainState`, in place; returns it."""
+    state.base.params.load_state_dict(params_from_jax(base, config))
+    _load_heads([(state.q_head.params, q)])
+    return state
+
+
+def cql_state_from_jax(
+    state,
+    config: TransformerConfig,
+    base: Mapping,
+    target_base: Optional[Mapping],
+    q1: Mapping,
+    q2: Mapping,
+    q1_target: Mapping,
+    q2_target: Mapping,
+):
+    """A JAX `CQLTrainState`'s parameter trees (as numpy) into a port
+    `CQLTrainState`, in place; returns it."""
+    state.base.params.load_state_dict(params_from_jax(base, config))
+    if (target_base is None) != (state.target_base_params is None):
+        raise ValueError("the JAX and the port state disagree on use_separate_target_base")
+    if target_base is not None:
+        state.target_base_params.load_state_dict(params_from_jax(target_base, config))
+    _load_heads([(state.q1_head.params, q1), (state.q2_head.params, q2),
+                 (state.q1_target_params, q1_target), (state.q2_target_params, q2_target)])
+    return state
+
+
+def ppo_state_from_jax(state, config: TransformerConfig, policy: Mapping, value_head: Mapping):
+    """A JAX `PPOTrainState`'s parameter trees (as numpy) into a port
+    `PPOTrainState`, in place; returns it."""
+    state.policy.params.load_state_dict(params_from_jax(policy, config))
+    _load_heads([(state.value_head.params, value_head)])
     return state

@@ -42,6 +42,8 @@ import torch
 
 
 def parse_args(argv=None) -> argparse.Namespace:
+    from lmrl_gym_torch.models.heads import MATMUL_PRECISIONS
+
     p = argparse.ArgumentParser()
     p.add_argument("--bc-steps", type=int, default=16000, help="streaming BC updates (fresh batch per step)")
     p.add_argument("--pbc-steps", type=int, default=16000)
@@ -76,6 +78,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="mask every serving rollout's decode to the vocab trie, for BC, %%BC and ILQL alike "
                    "(a from-scratch byte LM emits almost no valid word unmasked)")
     p.add_argument("--no-constrain-vocab", dest="constrain_vocab", action="store_false")
+    p.add_argument(
+        "--head-matmul-precision", choices=MATMUL_PRECISIONS, default="float32",
+        help="the Q/V heads' matmul precision (`MLPHeadConfig.matmul_precision`): bfloat16 rounds both operands "
+        "of every head product, forward and backward, as XLA's default precision does to an f32 dot on a TPU",
+    )
     p.add_argument("--seed", type=int, default=5)
     p.add_argument("--device", type=str, default="cuda", help="cuda (the card) or cpu (the plain path)")
     p.add_argument("--out", type=str, default=None)
@@ -222,10 +229,10 @@ class Gate:
 
         args = self.args
         D = self.config.hidden_size
-        q_cfg = MLPHeadConfig(input_dim=D, hidden_dim=2 * D, output_dim=self.config.padded_vocab_size,
-                              layer2_initializer_range=0.0, layer2_bias_init=args.value_bias_init)
-        v_cfg = MLPHeadConfig(input_dim=D, hidden_dim=2 * D, output_dim=1,
-                              layer2_initializer_range=0.0, layer2_bias_init=args.value_bias_init)
+        kw = dict(input_dim=D, hidden_dim=2 * D, layer2_initializer_range=0.0,
+                  layer2_bias_init=args.value_bias_init, matmul_precision=args.head_matmul_precision)
+        q_cfg = MLPHeadConfig(output_dim=self.config.padded_vocab_size, **kw)
+        v_cfg = MLPHeadConfig(output_dim=1, **kw)
         heads = self.replay.heads if self.replay is not None else (
             MLPHead(q_cfg, device=self.device, seed=2), MLPHead(q_cfg, device=self.device, seed=3),
             MLPHead(v_cfg, device=self.device, seed=4),
@@ -322,7 +329,8 @@ def run(g: Gate) -> dict:
         curve=curve,
         constrain_vocab=args.constrain_vocab,
         model=f"d{args.hidden} L{args.layers} byte vocab {g.tokenizer.vocab_size}, beta={args.beta}, streaming "
-        f"bsize {args.bsize}, eval B={args.eval_batch} fused rollouts on {g.device.type} (lmrl_gym_torch)",
+        f"bsize {args.bsize}, eval B={args.eval_batch} fused rollouts on {g.device.type}, head matmul "
+        f"{args.head_matmul_precision} (lmrl_gym_torch)",
     )
     return result
 

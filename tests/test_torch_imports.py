@@ -1,4 +1,5 @@
-"""The port stands alone: it imports with jax, flax and lmrl_gym_tpu blocked,
+"""The port stands alone: it imports with jax, flax, lmrl_gym_tpu and the
+`regex` package (absent on the card's machine) blocked,
 no port file (nor chip_smoke.py) imports them, and its entry points refuse
 to run without CUDA unless the caller asks for the CPU."""
 import ast
@@ -11,7 +12,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "lmrl_gym_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "lmrl_gym_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "lmrl_gym_tpu", "regex")
 
 
 def _port_modules():
@@ -65,8 +66,11 @@ def test_no_forbidden_imports(path):
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from lmrl_gym_torch.algos.bc import BCConfig, make_bc_train_step
+    from lmrl_gym_torch.algos.cql import CQLConfig, make_cql_train_step
     from lmrl_gym_torch.algos.ilql import ILQLConfig, init_ilql_state, make_ilql_train_step
-    from lmrl_gym_torch.algos.value_policy import LMServer
+    from lmrl_gym_torch.algos.mc import MCConfig, make_mc_train_step
+    from lmrl_gym_torch.algos.ppo import PPOConfig, make_ppo_train_step
+    from lmrl_gym_torch.algos.value_policy import LMServer, tokenize_histories_for_scoring
     from lmrl_gym_torch.core.optimizer import adam
     from lmrl_gym_torch.envs.wordle.vector import WordleVectorEnv, WordleVocab
     from lmrl_gym_torch.loops.actor import rollout_wordle_scripted
@@ -75,7 +79,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
     from lmrl_gym_torch.models.interface import LMCore
     from lmrl_gym_torch.models.transformer import KVCache, Transformer
-    from lmrl_gym_torch.scripts import wordle_ilql_gate
+    from lmrl_gym_torch.scripts import maze_ilql_gate, wordle_ilql_gate
+    from lmrl_gym_torch.text.frames import Text
     from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -96,6 +101,11 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
                                    OnlineDeviceConfig()),
         lambda: LMServer(LMCore(cfg), ByteTokenizer()),
         lambda: wordle_ilql_gate.main(["--bc-steps", "1", "--pbc-steps", "1", "--ilql-steps", "1"]),
+        lambda: make_mc_train_step(LMCore(cfg), MCConfig(), 256),
+        lambda: make_cql_train_step(LMCore(cfg), CQLConfig(), 256),
+        lambda: make_ppo_train_step(LMCore(cfg), PPOConfig(), 256),
+        lambda: tokenize_histories_for_scoring([(Text("a", False),)], ByteTokenizer(), 8),
+        lambda: maze_ilql_gate.main(["--n-chains", "1", "--bc-epochs", "1", "--ilql-epochs", "1"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
