@@ -20,7 +20,8 @@ Phases, each of which exits non-zero on failure:
    took, and the kernel, plain and library
    (scaled_dot_product_attention, forward or backward, a yardstick the port
    never calls) times; the backward cases include the online train step's
-   (B=64, H=12, T=128) and the gate's (B=512, H=4, T=128) shapes, and
+   (B=64, H=12, T=128) and the gate's (B=512, H=4, T=128) shapes, the
+   right-padded Text-Nav windows (B=32, T=640, H=12 and 4), and
    one bf16 case on right-padded windows whose pad rows keep a live
    cotangent, held against the plain version with P and dS rounded to
    bf16 (the kernels' arithmetic), its drift from the f32-P plain version
@@ -28,7 +29,8 @@ Phases, each of which exits non-zero on failure:
 2p. K1 and K4 against their plain versions at the later paths' shapes,
    bf16: the online rollout (B=256, H=12) and the gate's evals (B=512,
    H=4) on cache views, the text env's and LMServer's left-padded prefill
-   and decode with bias (B=8 and 4, prompts of 128 and 48 tokens);
+   and decode with bias (B=8 and 4, prompts of 128 and 48 tokens; the
+   Text-Nav rollouts' B=16, prompts of 640 and 36 new tokens);
 3. serving at full width: value-guided Wordle serving with GPT-2-small
    (vocab 50,257 padded to 50,304), bf16 weights from a seed, two trunks,
    twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and five
@@ -92,6 +94,27 @@ Phases, each of which exits non-zero on failure:
    its own width (d256 L4 H4, byte vocab) and a cut budget (50 chains, one
    BC epoch, two value epochs, legal-move guided decode), --algo cql then
    --algo mc: launch counts exactly the budget's, accuracies in [0, 1];
+3n. one PPO round on Text-Nav at GPT-2-small width (d768 L12 H12) over
+   the Text-Nav BPE (449 ids): 16 `TextNavEnv` episodes cut to 4 turns
+   through the port's Text-Nav gate's windowed policy (prompts of up to
+   640 tokens at H = 2, 36 new tokens; 12 K1 and 432 K4 launches per
+   `LMServer` call), `get_ppo_data_from_chains` on 640-token windows (24
+   K1 per forward call), four PPO steps at B=32 (12 / 12 / 12; the last
+   with the BC term, 24 / 24 / 24), finite losses, moving weights; a turn
+   and two steps profiled;
+3l. the generic loops at full width: `offline_train_loop` drives phase 3t's
+   ILQL step (one B=32 batch per epoch) for two epochs, saving the
+   seven-module checkpoint with its optimizer state after each; a fresh
+   state restored from the first resumes the loop, and its first step's
+   loss equals the uninterrupted run's second within 1e-6 relative; the
+   checkpoint's write and read seconds and bytes; then `online_train_loop`
+   runs two maze PPO rounds (phase 3p's width) with a round checkpoint;
+   all checkpoints in a temporary directory, deleted afterwards;
+3w. the port's two PPO gates (`lmrl_gym_torch/scripts/{text_nav,maze}_
+   ppo_gate.py`) at their own width (d256 L4 H4) and a cut budget (two
+   rounds, the first a value warm-up): launch counts exactly the budget's
+   (per `LMServer` call, BC and PPO step, PPO forward call) and every
+   return inside its env's range;
 4. the same full-width serving weights at B=4 on the card (kernels, bf16)
    against the CPU (plain path, f32): header prefill plus 3 decode steps;
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
@@ -107,7 +130,9 @@ Phases, each of which exits non-zero on failure:
    keys the same numbers for one ILQL train step; `launches_<path>` are
    the counts recorded on each later path (the online round and step, the
    Wordle gate, a text-env turn, an MC, CQL and PPO step, a PPO forward
-   call and rollout turn, a score call, the cut maze gates). Every kernel with two
+   call and rollout turn, a score call, the cut maze gates; and slice 7's: a Text-Nav turn, PPO forward
+   call and step (with BC), an offline and an online loop step, the cut
+   PPO gates). Every kernel with two
    variants carries the `variant` its main path runs and its `tc_launches`; and beside SDPA's backward
    (`library_ms`, which computes its own rowsum(dO ⊙ O)) the port's Δ pass
    (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`).
@@ -121,14 +146,18 @@ import contextlib
 import copy
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from lmrl_gym_torch.algos.bc import BCBatch, BCConfig, BCTrainState, make_bc_train_step
+from lmrl_gym_torch.algos.data import ArrayDataset
 from lmrl_gym_torch.algos.cql import CQLConfig, cql_forward, init_cql_state, make_cql_train_step
 from lmrl_gym_torch.algos.ilql import (
     ILQLBatch,
@@ -166,6 +195,9 @@ from lmrl_gym_torch.envs.maze.grids import ACTION_STRS, double_t_maze
 from lmrl_gym_torch.envs.wordle.env import ReformatWordleEnv, WordleEnv
 from lmrl_gym_torch.envs.wordle.vector import N_TRIES, WordleVectorEnv, WordleVocab
 from lmrl_gym_torch.loops import actor, online_device
+from lmrl_gym_torch.loops.checkpoints import LoopState, dump_modules, restore_module
+from lmrl_gym_torch.loops.offline import OfflineLoopConfig, offline_train_loop
+from lmrl_gym_torch.loops.online import OnlineLoopConfig, online_train_loop
 from lmrl_gym_torch.loops.online_device import OnlineDeviceConfig, online_ilql_wordle, wordle_rollout_to_ilql_batch
 from lmrl_gym_torch.models.config import gpt2_small
 from lmrl_gym_torch.models.generation import SamplingConfig
@@ -187,7 +219,7 @@ from lmrl_gym_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_fwd,
 )
-from lmrl_gym_torch.scripts import maze_ilql_gate, wordle_ilql_gate
+from lmrl_gym_torch.scripts import maze_ilql_gate, maze_ppo_gate, text_nav_ppo_gate, wordle_ilql_gate
 from lmrl_gym_torch.text.frames import (
     Text,
     TextTrajectory,
@@ -214,6 +246,7 @@ GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 2.0**-6)}
 LOGIT_TOL = 0.1
 ROLLOUT_REPS = 5  # timed rollouts; the median is reported beside min and max
 SPIN_CYCLES = 10_000_000  # cuda_ms's head start for the host: ~5 ms at the H100's 1.98 GHz boost
+PROFILER_TRIES = 3  # torch.profiler now and then records no device event on the card's machine
 # training: bench.py::bench_ilql_real_vocab's operating point
 TRAIN_B, TRAIN_T, NEXT_T = 32, 160, 16
 TRAIN_REPS = 10
@@ -224,6 +257,7 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-4, 1e-3
 # the maze paths: windows and prompts blocked to 160 tokens (the maze
 # gate's MAX_LEN), 12 new tokens per action
 MAZE_LEN, MAZE_NEW = 160, 12
+TN_LEN, TN_NEW = 640, 36  # the Text-Nav gate's windows at H = 2 (384 + 128·2) and new tokens per action
 
 
 class SmokeFailure(Exception):
@@ -266,14 +300,17 @@ def device_ms(fn, reps: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3
-    check(total > 0, "the profiler recorded no device time")
-    return total / reps
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kernels) / 1e3
+        if total > 0:
+            return total / reps
+    log(f"the profiler recorded no device time in {PROFILER_TRIES} tries; timing with CUDA events instead")
+    return cuda_ms(fn, reps)
 
 
 def excess(out, ref, dtype):
@@ -554,12 +591,15 @@ def _tc_counts():
 # (d256 H4: B=512, H=4, T=128), a ragged T (not a multiple of the 64-row
 # tile), LLaMA's head width, and the right-padded maze windows blocked to
 # 160 tokens of the PPO steps and the PPO forward (B=32, H=12) and of the
-# maze gate's train steps (d256 H4: B=32, H=4)
+# maze gate's train steps (d256 H4: B=32, H=4), and the Text-Nav windows
+# blocked to 640 tokens of phase 3n's PPO steps and forwards (B=32, H=12)
+# and of the Text-Nav gate's (d256 H4)
 BWD_CASES = (
     (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, False), (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
     (TRAIN_B, H, DH, 96, TRAIN_T, False), (64, H, DH, T_MAX, T_MAX, False), (512, 4, DH, T_MAX, T_MAX, False),
     (TRAIN_B, H, DH, 100, 100, True), (TRAIN_B, H, DH, 37, 100, False), (4, 32, 128, 160, 160, True),
     (TRAIN_B, H, DH, MAZE_LEN, MAZE_LEN, "right"), (TRAIN_B, 4, DH, MAZE_LEN, MAZE_LEN, "right"),
+    (TRAIN_B, H, DH, TN_LEN, TN_LEN, "right"), (TRAIN_B, 4, DH, TN_LEN, TN_LEN, "right"),
 )
 
 
@@ -629,7 +669,8 @@ def phase_path_checks() -> dict:
     with bias, K4 with bias at the first, a middle and the last of the 10
     decode slots; the PPO rollout's LMServer (B=16, H=12) and the maze
     gate's evals (B=25, H=4), prompts left-padded to 160 with 12 new
-    tokens, in bf16 and f32; and K1 on the score calls' 100 proposals
+    tokens, in bf16 and f32; the Text-Nav rollouts' (B=16, H=12 and 4),
+    prompts left-padded to 640 with 36 new tokens, bf16; and K1 on the score calls' 100 proposals
     right-padded to 160 (H=12 and 4), bf16 and f32. The online, gate, PPO
     and maze gate train steps' K1-K3 shapes are in BWD_CASES."""
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -653,6 +694,8 @@ def phase_path_checks() -> dict:
     # cells); the maze paths in f32 too (their CUDA-core K1)
     maze = [(16, H, MAZE_LEN, MAZE_NEW, dt) for dt in (dtype, torch.float32)]
     maze += [(25, 4, MAZE_LEN, MAZE_NEW, dt) for dt in (dtype, torch.float32)]
+    # the Text-Nav rollouts' LMServer at GPT-2-small (3n) and d256 H4 (3w)
+    maze += [(16, H, TN_LEN, TN_NEW, dtype), (16, 4, TN_LEN, TN_NEW, dtype)]
     for b, h, prompt, n_new, dtype in [(8, H, T_MAX, 10, dtype), (4, H, 48, 10, dtype)] + maze:
         t_max = prompt + n_new
         q, k, v, bias = _flash_inputs(prompt, prompt, dtype, True, gen, b, h, t_max=t_max)
@@ -863,14 +906,19 @@ def profile_run(label: str, run, unprofiled_s: float) -> None:
     category and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    check(busy_ms > 0, "the profiler recorded no device time")
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        if busy_ms > 0:
+            break
+    else:
+        log(f"profile {label}: the profiler recorded no device time in {PROFILER_TRIES} tries; no breakdown")
+        return
     log(f"profile {label}: wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} idle_share={1 - busy_ms / wall_ms:.3f} "
         f"(against the unprofiled {label}: {1 - busy_ms / (unprofiled_s * 1e3):.3f})")
     by_cat: dict = {}
@@ -1665,6 +1713,348 @@ def phase_maze_gate(device="cuda", extra=()) -> dict:
     return out
 
 
+# ---------------- slice 7: PPO on Text-Nav, the train loops, the PPO gates ----------------
+
+TN_EPISODES, TN_MAX_STEPS = 16, 4  # 3n: Text-Nav episodes at batch 16, cut to 4 turns
+LOOP_STEPS = 2  # 3l: uninterrupted offline-loop epochs (one B=32 batch each)
+RESUME_RTOL = 1e-6
+TN_GATE_ARGS = ["--n-episodes", "16", "--bc-epochs", "1", "--rounds", "2", "--value-warmup-rounds", "1",
+                "--rollouts-per-round", "16", "--eval-rollouts", "16", "--max-steps", "8"]
+MAZE_PPO_GATE_ARGS = ["--n-chains", "20", "--bc-epochs", "1", "--rounds", "2", "--value-warmup-rounds", "1",
+                      "--rollouts-per-round", "16", "--eval-rollouts", "16"]
+
+
+def _text_nav_gate(extra=(), device="cuda"):
+    """The port's Text-Nav PPO gate at GPT-2-small width (d768 L12 H12)
+    over the Text-Nav BPE, windows of TN_LEN tokens at H = 2."""
+    args = text_nav_ppo_gate.parse_args(["--hidden", "768", "--layers", "12", "--heads", "12",
+                                         "--rollouts-per-round", str(TN_EPISODES), "--max-steps", str(TN_MAX_STEPS),
+                                         *extra, "--device", device])
+    g = text_nav_ppo_gate.Gate(args)
+    check(g.MAX_LEN == TN_LEN and g.config.max_position_embeddings == TN_LEN, f"Text-Nav MAX_LEN {g.MAX_LEN}")
+    return g
+
+
+def phase_text_nav_ppo(device="cuda", extra=()) -> dict:
+    """Phase 3n: one PPO round on Text-Nav at GPT-2-small width: LMServer
+    rollouts of `TextNavEnv` through the gate's windowed policy (TN_EPISODES
+    episodes cut to TN_MAX_STEPS turns, batch 16), the PPO data path on
+    TN_LEN-token windows, and four PPO steps at B=32, the last with the BC
+    term. Launches worked out from the code before the run: per LMServer
+    call one prefill (L K1) and TN_NEW decode steps (L·TN_NEW K4); per
+    forward call two trunks (2L K1); per step one forward and one backward
+    (L each of K1, K2, K3), the BC step a second of each."""
+    g = _text_nav_gate(extra, device)
+    L, pad = g.config.num_layers, g.tokenizer.pad_token_id
+    policy = init_params(g.config, seed=40, device=device)
+    value_head = LinearHead(LinearHeadConfig(g.config.hidden_size, 1), device=device, seed=41)
+    turns = []
+    generate = g.generate
+
+    def traced_generate(params, prompts, sampling, generator):
+        res, counts, s = _counted(generate, params, prompts, sampling, generator, device=device)
+        turns.append(dict(n=len(prompts), counts=counts, s=s, prompts=prompts))
+        return res
+
+    g.generate = traced_generate
+    t0 = time.perf_counter()
+    chains, summary = g.rollouts(policy, 0)
+    t_roll = time.perf_counter() - t0
+    check(len(chains) == TN_EPISODES, f"Text-Nav rollout: {len(chains)} episodes")
+    for i, turn in enumerate(turns):
+        check(turn["counts"] == _want(L, fwd=1, dec=TN_NEW), f"Text-Nav turn {i}: {_fmt_counts(turn['counts'])}")
+    long_prompt = max(len(g.tokenizer.encode(p)) for t in turns for p in t["prompts"])
+    log(f"Text-Nav rollout (3n): {TN_EPISODES} episodes at batch 16 in {t_roll:.3f} s over {len(turns)} LMServer calls "
+        f"(per call {_fmt_counts(turns[0]['counts'])}, median {sorted(t['s'] for t in turns)[len(turns) // 2]:.4f} s, "
+        f"longest prompt {long_prompt} tokens of {TN_LEN}); return mean {summary['reward']['mean']:.3f}")
+    if torch.device(device).type == "cuda":
+        prompts = turns[-1]["prompts"] * (16 // len(turns[-1]["prompts"]) + 1)
+        profile_run("Text-Nav turn (LMServer, B=16, 640-token prompts, 36 new)", lambda: generate(
+            policy, prompts[:16], g.rollout_sampling, torch.Generator(device=device).manual_seed(5)), turns[0]["s"])
+    g.generate = generate
+
+    state = PPOTrainState(TrainState(policy, adamw(3e-4)), TrainState(value_head, adamw(1e-3)))
+    init_policy = copy.deepcopy(policy).requires_grad_(False)
+    fwd_calls = []
+    forward = make_ppo_forward_fn(g.core, init_policy, policy, value_head, pad)
+
+    def traced_forward(tokens):
+        res, counts, s = _counted(forward, tokens, device=device)
+        fwd_calls.append(dict(counts=counts, s=s))
+        return res
+
+    t0 = time.perf_counter()
+    datas, kls = get_ppo_data_from_chains(traced_forward, g.tokenizer, chains, TRAIN_B, TN_LEN, gamma=0.99, lam=0.95,
+                                          kl_weight=0.01)
+    t_data = time.perf_counter() - t0
+    for i, call in enumerate(fwd_calls):
+        check(call["counts"] == _want(L, fwd=2), f"Text-Nav PPO forward call {i}: {_fmt_counts(call['counts'])}")
+    check(len(kls) > 0 and bool(np.isfinite(kls).all()), "Text-Nav PPO data: KL estimates not finite")
+    blocked = block_ppo_data(datas, BlockingStrategy(Padding.RIGHT, Truncation.RIGHT, TN_LEN), pad)
+    n = blocked["input_ids"].shape[0]
+    log(f"Text-Nav PPO data (3n): {n} windows from {len(chains)} chains in {t_data:.3f} s over {len(fwd_calls)} forward "
+        f"calls (per call {_fmt_counts(fwd_calls[0]['counts'])}); blocked {tuple(blocked['input_ids'].shape)}")
+    rows = np.arange(4 * TRAIN_B) % n  # four batches of 32 windows (wrapping when the round made fewer)
+    w0 = (policy.ln_f.weight.detach().clone(), value_head.dense.weight.detach().clone())
+    out = _path_counts("text_nav_turn", turns[0]["counts"])
+    out.update(_path_counts("ppo_forward_text_nav", fwd_calls[0]["counts"]))
+    for i, bc_weight in enumerate((0.0, 0.0, 0.0, 0.5)):
+        step = make_ppo_train_step(g.core, PPOConfig(gamma=0.99, lam=0.95, bc_loss_weight=bc_weight), pad)
+        t = {k: torch.from_numpy(v[rows[i * TRAIN_B:(i + 1) * TRAIN_B]]).to(device) for k, v in blocked.items()}
+        bc = {}
+        if bc_weight:
+            mask = torch.cat((torch.zeros_like(t["should_take_action"][:, :1]), t["should_take_action"]), 1)
+            bc = dict(bc_input_ids=t["input_ids"].long(), bc_training_mask=mask.float())
+        batch = PPOBatch(t["input_ids"].long(), t["should_take_action"], t["old_logprobs"], t["old_values"],
+                         t["old_advantages"], t["old_returns"], **bc)
+        (state, loss, logs), counts, s = _counted(step, state, batch, device=device)
+        want = _want(L, fwd=2, bwd=2) if bc_weight else _want(L, fwd=1, bwd=1)
+        check(counts == want, f"Text-Nav PPO step {i} bc={bc_weight}: {_fmt_counts(counts)}, want {want}")
+        check(math.isfinite(loss.item()), f"Text-Nav PPO step {i}: loss {loss.item()}")
+        log(f"Text-Nav PPO step (3n) {i} bc_weight={bc_weight} B={TRAIN_B} T={TN_LEN}: {s:.4f} s, {_fmt_counts(counts)}, "
+            f"loss {loss.item():.4f} approx_kl {logs['policy']['approx_kl'].item():.3e}")
+        out.update(_path_counts("ppo_step_text_nav_bc" if bc_weight else "ppo_step_text_nav", counts))
+        if torch.device(device).type == "cuda" and i in (0, 3):
+            profile_run(f"Text-Nav PPO step bc_weight={bc_weight}", lambda: step(state, batch), s)
+    check(not torch.equal(w0[0], policy.ln_f.weight) and not torch.equal(w0[1], value_head.dense.weight),
+          "Text-Nav PPO steps: the policy or the value head did not move")
+    return out
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def phase_loops(config, device="cuda", maze_config=None) -> dict:
+    """Phase 3l: the generic loops at full width. Offline: `offline_train_loop`
+    drives the ILQL step at phase 3t's point (GPT-2-small, vocab 50,304,
+    B=32, T=160, one batch per epoch) for LOOP_STEPS epochs, saving the
+    seven-module checkpoint with its optimizer state after each epoch; a
+    fresh state restored from the first epoch's checkpoint resumes the loop
+    (which restarts that epoch, as the JAX loop does), and its first step's
+    loss must equal the uninterrupted run's second within RESUME_RTOL (the
+    same 32 windows, in another order). Online: `online_train_loop` runs two
+    maze PPO rounds (phase 3p's width) with a round checkpoint. Checkpoints
+    go to a temporary directory, deleted afterwards."""
+    L = config.num_layers
+    core = LMCore(config, device=device)
+    ilql_config = ILQLConfig()
+    step = make_ilql_train_step(core, ilql_config, PAD_ID)
+    cpu_batch = _train_batch("cpu")
+    arrays = {k: v.numpy() for k, v in cpu_batch._asdict().items()}
+
+    def batch_prep(b):
+        return ILQLBatch(*(torch.from_numpy(np.asarray(b[f])).to(device) for f in ILQLBatch._fields))
+
+    def modules(s):
+        return {"base": s.base, "target_base": s.target_base_params, "q1_head": s.q1_head, "q2_head": s.q2_head,
+                "v_head": s.v_head, "q1_target_head": s.q1_target_params, "q2_target_head": s.q2_target_params}
+
+    def fresh_state():
+        return init_ilql_state(*_train_modules(config, device, seed=7), adamw(1e-4), adamw(1e-3), ilql_config)
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        runs = {}
+        for name in ("uninterrupted", "resumed"):
+            losses, step_counts = [], []
+
+            def step_fn(s, b, generator):
+                _reset_counts()
+                s, loss, logs = step(s, b)
+                step_counts.append(_all_counts())
+                losses.append(loss.item())
+                return s, loss, logs
+
+            state = fresh_state()
+            loop_state = None
+            save_dir = os.path.join(root, name)
+            if name == "resumed":
+                ckpt = os.path.join(root, "uninterrupted", "epoch_0")
+                t0 = time.perf_counter()
+                for mod_name, module in modules(state).items():
+                    restore_module(ckpt, mod_name, module)
+                _sync(device)
+                t_read = time.perf_counter() - t0
+                loop_state = LoopState.load(os.path.join(ckpt, "loop_state.pkl"))
+                n_bytes = _dir_bytes(ckpt)
+                log(f"loops (3l): read the 7-module ILQL checkpoint with optimizer state ({n_bytes / 1e9:.3f} GB) in "
+                    f"{t_read:.2f} s ({n_bytes / 1e9 / t_read:.3f} GB/s); loop state step {loop_state.step} epoch "
+                    f"{loop_state.epoch}")
+                out.update(ckpt_read_s=t_read, ckpt_bytes=n_bytes)
+            t0 = time.perf_counter()
+            state, ls = offline_train_loop(
+                state, step_fn, ArrayDataset(dict(arrays)),
+                OfflineLoopConfig(epochs=LOOP_STEPS, train_bsize=TRAIN_B, log_every=None, eval_every_epochs=None,
+                                  save_every_epochs=1 if name == "uninterrupted" else None, save_at_end=False,
+                                  save_dir=save_dir, save_train_state=True),
+                batch_prep=batch_prep, module_getter=modules, loop_state=loop_state)
+            _sync(device)
+            runs[name] = dict(losses=losses, s=time.perf_counter() - t0, ls=(ls.step, ls.epoch))
+            for i, c in enumerate(step_counts):
+                check(c == _want(L, fwd=3, bwd=1), f"offline loop {name} step {i}: {_fmt_counts(c)}")
+            check(all(math.isfinite(x) for x in losses), f"offline loop {name}: losses {losses}")
+            del state
+        un, re = runs["uninterrupted"], runs["resumed"]
+        ckpt_dir = os.path.join(root, "uninterrupted")
+        check(sorted(os.listdir(ckpt_dir)) == [f"epoch_{i}" for i in range(LOOP_STEPS)], f"checkpoints {os.listdir(ckpt_dir)}")
+        rel = abs(re["losses"][0] - un["losses"][1]) / abs(un["losses"][1])
+        log(f"loops (3l) offline ILQL: uninterrupted {LOOP_STEPS} epochs in {un['s']:.2f} s (two checkpoint writes "
+            f"included), losses {un['losses']}; resumed from epoch_0 (step 1): losses {re['losses']}, loop state "
+            f"{re['ls']}; first resumed step vs the uninterrupted step 2: rel diff {rel:.2e} (tol {RESUME_RTOL}); "
+            f"per step {_fmt_counts(step_counts[0])}")
+        check(rel <= RESUME_RTOL, f"offline loop resume: first step's loss {re['losses'][0]} vs {un['losses'][1]}")
+        check(re["ls"] == (LOOP_STEPS + 1, LOOP_STEPS), f"resumed loop state {re['ls']}")
+        # one timed write of the same checkpoint
+        state = fresh_state()
+        t0 = time.perf_counter()
+        dump_modules(os.path.join(root, "timed"), modules(state), save_train_state=True)
+        t_write = time.perf_counter() - t0
+        n_bytes = _dir_bytes(os.path.join(root, "timed"))
+        t0 = time.perf_counter()
+        dump_modules(os.path.join(root, "timed_params"), modules(state), save_train_state=False)
+        t_params = time.perf_counter() - t0
+        p_bytes = _dir_bytes(os.path.join(root, "timed_params"))
+        log(f"loops (3l): wrote the 7-module ILQL checkpoint with optimizer state ({n_bytes / 1e9:.3f} GB) in "
+            f"{t_write:.2f} s ({n_bytes / 1e9 / t_write:.3f} GB/s); params only ({p_bytes / 1e9:.3f} GB) in {t_params:.2f} s")
+        out.update(ckpt_write_s=t_write, ckpt_params_bytes=p_bytes, ckpt_params_write_s=t_params)
+        out.update(_path_counts("offline_loop_step", step_counts[0]))
+        del state
+        shutil.rmtree(root)
+        root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        out.update(_online_loop(device, root, maze_config))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _online_loop(device, root, config=None) -> dict:
+    """Two maze PPO rounds through `online_train_loop` at phase 3p's width:
+    each round LMServer rollouts of the live policy (16 episodes cut to
+    PPO_MAX_STEPS moves), the PPO data path, one epoch of B=32 steps; a
+    round checkpoint after each round."""
+    tok = ByteTokenizer()
+    config = config or _maze_config(tok)
+    L, pad = config.num_layers, tok.pad_token_id
+    core = LMCore(config, device=device)
+    server = LMServer(core, tok)
+    sampling = SamplingConfig(max_new_tokens=MAZE_NEW, temperature=1.0, eos_token_id=10, pad_token_id=pad)
+    policy = init_params(config, seed=50, device=device)
+    init_policy = copy.deepcopy(policy).requires_grad_(False)
+    value_head = LinearHead(LinearHeadConfig(config.hidden_size, 1), device=device, seed=51)
+    state = PPOTrainState(TrainState(policy, adamw(1e-5)), TrainState(value_head, adamw(1e-4)))
+    step = make_ppo_train_step(core, PPOConfig(gamma=0.99, lam=0.95), pad)
+    env = build_maze_env(max_steps=PPO_MAX_STEPS)
+    rounds = []
+
+    def load_dataset(s, r):
+        _reset_counts()
+        t0 = time.perf_counter()
+        pol = GenerationPolicy(lambda prompts, gen: server.generate_from_strs(s.policy.params, prompts, MAZE_LEN,
+                                                                              sampling, gen),
+                               torch.Generator(device=device).manual_seed(60 + r))
+        games, _ = text_env_eval(env, pol, n_rollouts=16, seed_generator=iter(range(100 * r, 100 * r + 16)), bsize=16)
+        chains = []
+        for game in games:
+            chain = None
+            for tr in reversed(game):
+                chain = TextTrajectoryChain(TextTrajectory((tr.pre_action_history[-1], tr.post_action_history[-1]),
+                                                           (0.0, tr.reward), tr.done), chain)
+            chains.append(TokenTrajectoryChain.from_text_trajectory_chain(chain, tok))
+        fwd = make_ppo_forward_fn(core, init_policy, s.policy.params, s.value_head.params, pad)
+        datas, _ = get_ppo_data_from_chains(fwd, tok, chains, TRAIN_B, MAZE_LEN, gamma=0.99, lam=0.95, kl_weight=0.01)
+        _sync(device)
+        rounds.append(dict(data_s=time.perf_counter() - t0, rollout_counts=_all_counts(), windows=len(datas)))
+        return ArrayDataset(block_ppo_data(datas, BlockingStrategy(Padding.RIGHT, Truncation.RIGHT, MAZE_LEN), pad))
+
+    def batch_prep(b):
+        t = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in b.items()}
+        return PPOBatch(t["input_ids"].long(), t["should_take_action"], t["old_logprobs"], t["old_values"],
+                        t["old_advantages"], t["old_returns"])
+
+    step_counts = []
+
+    def step_fn(s, b, generator):
+        _reset_counts()
+        out = step(s, b)
+        step_counts.append(_all_counts())
+        return out
+
+    t0 = time.perf_counter()
+    state, ls = online_train_loop(state, step_fn, load_dataset,
+                                  OnlineLoopConfig(n_rounds=2, epochs_per_round=1, train_bsize=TRAIN_B, log_every=None,
+                                                   eval_every_rounds=None, save_every_rounds=1, save_at_end=False,
+                                                   save_dir=root),
+                                  batch_prep=batch_prep,
+                                  module_getter=lambda s: {"policy": s.policy, "value_head": s.value_head})
+    _sync(device)
+    t_all = time.perf_counter() - t0
+    check(ls.round == 2 and sorted(os.listdir(root)) == ["round_0", "round_1"], f"online loop: {os.listdir(root)}")
+    for c in step_counts:
+        check(c == _want(L, fwd=1, bwd=1), f"online loop PPO step: {_fmt_counts(c)}")
+    n_bytes = _dir_bytes(os.path.join(root, "round_1"))
+    restored = LinearHead(LinearHeadConfig(config.hidden_size, 1), device=device, seed=0)
+    restore_module(os.path.join(root, "round_1"), "value_head", restored)
+    check(torch.equal(restored.dense.weight, value_head.dense.weight), "online loop: round checkpoint value head")
+    log(f"loops (3l) online maze PPO: 2 rounds in {t_all:.2f} s (rollout + data {[round(r['data_s'], 3) for r in rounds]} s, "
+        f"{[r['windows'] for r in rounds]} windows), {len(step_counts)} steps ({_fmt_counts(step_counts[0])} each), "
+        f"round checkpoint {n_bytes / 1e9:.3f} GB (policy + value head, params)")
+    return {**_path_counts("online_loop_step", step_counts[0]), "online_loop_s": t_all}
+
+
+def _gate_counts(gate, run) -> tuple:
+    """Run a PPO gate with its launches counted and its LMServer calls and
+    each round's PPO windows recorded; returns (result, counts, seconds,
+    LMServer calls, windows per round)."""
+    calls, forwards = [], []
+    generate = gate.generate
+    gate.generate = lambda *a, **kw: (calls.append(1), generate(*a, **kw))[1]
+    ppo_data = gate.ppo_data
+
+    def counted_ppo_data(state, init_policy, chains, kl_weight):
+        blocked, mean_kl, n = ppo_data(state, init_policy, chains, kl_weight)
+        forwards.append(n)
+        return blocked, mean_kl, n
+
+    gate.ppo_data = counted_ppo_data
+    result, counts, s = _counted(run, gate, device=gate.device)
+    return result, counts, s, len(calls), forwards
+
+
+def phase_ppo_gates(device="cuda", extra=()) -> dict:
+    """Phase 3w: the port's two PPO gates at their own width (d256 L4 H4)
+    and a cut budget (TN_GATE_ARGS, MAZE_PPO_GATE_ARGS): launch counts
+    exactly the budget's — per LMServer call L K1 and L·new K4, per BC and
+    PPO step L each of K1/K2/K3, per PPO forward call 2L K1 — and every
+    return inside its env's range (Text-Nav: a win rate in [0, 1]; the maze:
+    −1 per move, at most 100 moves)."""
+    out = {}
+    for name, module, argv, lo in (("text_nav", text_nav_ppo_gate, TN_GATE_ARGS, 0.0),
+                                   ("maze", maze_ppo_gate, MAZE_PPO_GATE_ARGS, -401.0)):
+        args = module.parse_args(argv + list(extra) + ["--device", device])
+        g = module.Gate(args)
+        L, bs = args.layers, args.bsize
+        n_windows_bc = sum(len(c.to_list()) for c in g.bc_token_chains())
+        result, counts, s, n_calls, windows = _gate_counts(g, module.run)
+        bc_steps = -(-n_windows_bc // bs) * args.bc_epochs
+        fwd_calls = sum(-(-n // bs) for n in windows)
+        ppo_steps = sum(-(-n // bs) for n in windows) * args.epochs_per_round
+        want = tuple(sum(x) for x in zip(_want(L, fwd=n_calls, dec=n_calls * g.MAX_NEW),
+                                         _want(L, fwd=bc_steps + ppo_steps + 2 * fwd_calls, bwd=bc_steps + ppo_steps)))
+        check(counts == want, f"PPO gate {name}: {_fmt_counts(counts)}, want {want}")
+        returns = [result[k] for k in ("bc_return", "ppo_return", "bc_return_greedy", "ppo_return_greedy")]
+        returns += [r["rollout_reward"] for r in result["kl_trace"]]
+        check(all(lo <= r <= (1.0 if lo == 0.0 else 0.0) for r in returns), f"PPO gate {name}: returns {returns}")
+        check(all(math.isfinite(r["mean_kl"]) for r in result["kl_trace"]), f"PPO gate {name}: {result['kl_trace']}")
+        log(f"PPO gate (3w) {name} ({' '.join(argv)}): {s:.1f} s, {n_calls} LMServer calls, {bc_steps} BC steps, "
+            f"{fwd_calls} PPO forward calls, {ppo_steps} PPO steps, {_fmt_counts(counts)}; result "
+            f"{ {k: v for k, v in result.items() if k != 'model'} }")
+        out.update(_path_counts(f"ppo_gate_{name}", counts))
+        out[f"ppo_gate_{name}_s"] = s
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
@@ -1691,6 +2081,11 @@ def main() -> int:
         launches.update(ppo)
         launches.update(phase_maze_gate())
         log(f"phases 3m, 3c, 3p, 3r, 3z: {time.perf_counter() - t_slice6:.1f} s")
+        t_slice7 = time.perf_counter()
+        launches.update(phase_text_nav_ppo())
+        launches.update(phase_loops(launches["config"]))
+        launches.update(phase_ppo_gates())
+        log(f"phases 3n, 3l, 3w: {time.perf_counter() - t_slice7:.1f} s")
         phase_card_vs_cpu(launches["base"], launches["config"])
         phase_train_card_vs_cpu(launches["config"])
     except SmokeFailure as e:
@@ -1738,7 +2133,9 @@ def main() -> int:
     for entry in kernels:
         for path in ("online_round", "online_step", "gate", "text_env_turn", "mc_step", "cql_step", "ppo_step",
                      "ppo_step_bc", "ppo_forward", "ppo_rollout_turn", "score_call", "score_call_ilql_pi_beta",
-                     "score_call_mc", "maze_gate_cql", "maze_gate_mc"):
+                     "score_call_mc", "maze_gate_cql", "maze_gate_mc", "text_nav_turn", "ppo_forward_text_nav",
+                     "ppo_step_text_nav", "ppo_step_text_nav_bc", "offline_loop_step", "online_loop_step",
+                     "ppo_gate_text_nav", "ppo_gate_maze"):
             if f"{entry['name']}_{path}" in launches:
                 entry[f"launches_{path}"] = launches[f"{entry['name']}_{path}"]
             if f"{entry['name']}_tc_{path}" in launches:

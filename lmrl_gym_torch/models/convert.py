@@ -11,6 +11,8 @@ imports JAX. The output is a state dict for `load_state_dict`:
 
 The same maps carry gradient trees (same structure as the params), so a
 test can hold the port's gradients to `jax.grad`'s by name.
+`params_to_jax` and `head_params_to_jax` go the other way, so the port
+writes checkpoints under the flax key paths (`core/checkpointing.py`).
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from lmrl_gym_torch.models.config import TransformerConfig
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float32, copy=True)
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
@@ -67,6 +71,47 @@ def head_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         if name in tree:
             _dense(sd, name, tree[name])
     return sd
+
+
+def _to_dense(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    node = {"kernel": sd[f"{prefix}.weight"].detach().cpu().T.contiguous()}
+    if f"{prefix}.bias" in sd:
+        node["bias"] = sd[f"{prefix}.bias"].detach().cpu()
+    return node
+
+
+def _to_norm(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    node = {"scale": sd[f"{prefix}.weight"].detach().cpu()}
+    if f"{prefix}.bias" in sd:
+        node["bias"] = sd[f"{prefix}.bias"].detach().cpu()
+    return node
+
+
+def params_to_jax(sd: Mapping[str, torch.Tensor], config: TransformerConfig) -> Dict[str, dict]:
+    """The inverse of `params_from_jax`: the port's `Transformer` state dict
+    → the flax param tree (nested dicts of CPU tensors in the parameters'
+    dtype), whose '/'-joined key paths are the JAX package's checkpoint
+    keys."""
+    tree: Dict[str, dict] = {"wte": {"embedding": sd["wte.weight"].detach().cpu()}}
+    if config.position_embedding == "learned":
+        tree["wpe"] = {"embedding": sd["wpe.weight"].detach().cpu()}
+    for i in range(config.num_layers):
+        node = {"ln_1": _to_norm(sd, f"h.{i}.ln_1"),
+                "attn": {name: _to_dense(sd, f"h.{i}.attn.{name}") for name in ("qkv", "out")}}
+        if not config.parallel_ffn:
+            node["ln_2"] = _to_norm(sd, f"h.{i}.ln_2")
+        names = ("fc", "gate", "proj") if config.gated_mlp else ("fc", "proj")
+        node["mlp"] = {name: _to_dense(sd, f"h.{i}.mlp.{name}") for name in names}
+        tree[f"h_{i}"] = node
+    tree["ln_f"] = _to_norm(sd, "ln_f")
+    if not config.tie_word_embeddings:
+        tree["lm_head"] = _to_dense(sd, "lm_head")
+    return tree
+
+
+def head_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """The inverse of `head_params_from_jax`."""
+    return {name: _to_dense(sd, name) for name in ("dense", "dense1", "dense2") if f"{name}.weight" in sd}
 
 
 def ilql_state_from_jax(

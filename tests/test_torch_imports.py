@@ -79,7 +79,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
     from lmrl_gym_torch.models.interface import LMCore
     from lmrl_gym_torch.models.transformer import KVCache, Transformer
-    from lmrl_gym_torch.scripts import maze_ilql_gate, wordle_ilql_gate
+    from lmrl_gym_torch.scripts import maze_ilql_gate, maze_ppo_gate, text_nav_ppo_gate, wordle_ilql_gate
     from lmrl_gym_torch.text.frames import Text
     from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
@@ -106,6 +106,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         lambda: make_ppo_train_step(LMCore(cfg), PPOConfig(), 256),
         lambda: tokenize_histories_for_scoring([(Text("a", False),)], ByteTokenizer(), 8),
         lambda: maze_ilql_gate.main(["--n-chains", "1", "--bc-epochs", "1", "--ilql-epochs", "1"]),
+        lambda: maze_ppo_gate.main(["--n-chains", "1", "--bc-epochs", "1", "--rounds", "1"]),
+        lambda: text_nav_ppo_gate.main(["--n-episodes", "1", "--bc-epochs", "1", "--rounds", "1"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

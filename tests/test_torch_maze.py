@@ -61,7 +61,10 @@ def test_maze_builders_and_chains_match():
             ja = [(tuple((x.text, x.is_action) for x in tt.text_history), tt.reward, tt.done) for tt in a.to_list()]
             tb = [(tuple((x.text, x.is_action) for x in tt.text_history), tt.reward, tt.done) for tt in b.to_list()]
             assert ja == tb
-    assert set(ttasks.TASKS) == {"maze"} and ttasks.TASKS["maze"].max_length == jtasks.TASKS["maze"].max_length
+    # the port's task table holds the tasks ported so far, each as the JAX table has it
+    assert set(ttasks.TASKS) == {"maze", "text_nav", "text_nav_partial"}
+    for name, task in ttasks.TASKS.items():
+        assert task.max_length == jtasks.TASKS[name].max_length and task.stop_token == jtasks.TASKS[name].stop_token
 
 
 def test_per_cell_accuracy_matches():
