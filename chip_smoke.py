@@ -7,7 +7,8 @@ Phases, each of which exits non-zero on failure:
 
 1. the card (`nvidia-smi` name and power limit) and the kernel build
    (`nvcc`, one process per source, all started together, from
-   lmrl_gym_torch/csrc/);
+   lmrl_gym_torch/csrc/), with the chess library (`g++`, from
+   native/chess/chesscore.cpp) built beside them;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    serving path's shapes (B=512, H=12, Dh=64) and, for the flash forward
    and backward kernels, the training shapes (B=32, H=12, T=160, Dh=64,
@@ -30,7 +31,11 @@ Phases, each of which exits non-zero on failure:
    bf16: the online rollout (B=256, H=12) and the gate's evals (B=512,
    H=4) on cache views, the text env's and LMServer's left-padded prefill
    and decode with bias (B=8 and 4, prompts of 128 and 48 tokens; the
-   Text-Nav rollouts' B=16, prompts of 640 and 36 new tokens);
+   Text-Nav rollouts' B=16, prompts of 640 and 36 new tokens); the Markov
+   paths' (bf16): K1 on each turn's observation prefill (Tq = S = 20, 96,
+   72 on views of 31-, 104- and 80-slot caches; B=512 and 256) and K4 at
+   every action slot, and K1-K3 on their train windows (T = 104, 31, 80;
+   B=64 and 512) with K1 alone on the next-window forward;
 3. serving at full width: value-guided Wordle serving with GPT-2-small
    (vocab 50,257 padded to 50,304), bf16 weights from a seed, two trunks,
    twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and five
@@ -115,6 +120,25 @@ Phases, each of which exits non-zero on failure:
    rounds, the first a value warm-up): launch counts exactly the budget's
    (per `LMServer` call, BC and PPO step, PPO forward call) and every
    return inside its env's range;
+3k. the Markov actors at `bench.py::bench_actor_markov`'s point:
+   GPT-2-small over a 512-token vocab, bf16 weights from a seed,
+   `rollout_markov` through `make_lm_step_fn`, B=512, 8 turns, on the maze
+   (double_t_maze, 8 moves) and KQ-K chess (FEN, 8 moves): one warm-up and
+   three timed rollouts each with exact launches (K1 8 x 12 = 96; K4
+   8 x 11 x 12 = 1,056 maze, 8 x 8 x 12 = 768 chess), turns that never come
+   back to life, rewards in {0, -1, -4} / {1, 0, -1} and every chess
+   frame's FEN valid for the port's engine, env-steps/s, one rollout each
+   profiled;
+3u. `online_ilql_markov` on chess at full width (f32 parameters, bf16
+   activations, twin MLP Q heads and a V head, a separate target base, a
+   frozen pi_beta), two rounds of a B=256 rollout and B=64 steps: per
+   round the rollout's launches (192 / 1,536; the two-trunk value-guided
+   chess rollout, the online loop's and the gate's step function) and
+   each step's (36 / 12 / 12), finite losses, moving weights, wall times,
+   a rollout and four of a round's steps profiled;
+3h. the port's chess gate (`lmrl_gym_torch/scripts/chess_ilql_gate.py`)
+   at its own width (d256 L4 H4, grid observations) and a cut budget:
+   launch counts exactly the budget's and every rate in [0, 1];
 4. the same full-width serving weights at B=4 on the card (kernels, bf16)
    against the CPU (plain path, f32): header prefill plus 3 decode steps;
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
@@ -132,7 +156,9 @@ Phases, each of which exits non-zero on failure:
    Wordle gate, a text-env turn, an MC, CQL and PPO step, a PPO forward
    call and rollout turn, a score call, the cut maze gates; and slice 7's: a Text-Nav turn, PPO forward
    call and step (with BC), an offline and an online loop step, the cut
-   PPO gates). Every kernel with two
+   PPO gates; and slice 8's: a Markov rollout on the maze and on chess,
+   the guided chess rollout (3u's), an online Markov round and step, the cut
+   chess gate). Every kernel with two
    variants carries the `variant` its main path runs and its `tc_launches`; and beside SDPA's backward
    (`library_ms`, which computes its own rowsum(dO ⊙ O)) the port's Δ pass
    (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`).
@@ -151,6 +177,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -190,15 +217,24 @@ from lmrl_gym_torch.cli.tasks import build_maze_env, generate_maze_chains
 from lmrl_gym_torch.core.blocking import BlockingStrategy, Padding, Truncation
 from lmrl_gym_torch.core.optimizer import TrainState, adamw, value_and_grads
 from lmrl_gym_torch.envs.base import text_env_eval
+from lmrl_gym_torch.envs.chess import engine as chess_engine
+from lmrl_gym_torch.envs.chess.vector import ChessEndgameVectorEnv
 from lmrl_gym_torch.envs.maze.eval import per_cell_optimal_move_accuracy
-from lmrl_gym_torch.envs.maze.grids import ACTION_STRS, double_t_maze
+from lmrl_gym_torch.envs.maze.grids import ACTION_STRS, DOUBLE_T_GOAL, double_t_maze
+from lmrl_gym_torch.envs.maze.vector import MazeTokenVecEnv, MazeVectorEnv
 from lmrl_gym_torch.envs.wordle.env import ReformatWordleEnv, WordleEnv
 from lmrl_gym_torch.envs.wordle.vector import N_TRIES, WordleVectorEnv, WordleVocab
 from lmrl_gym_torch.loops import actor, online_device
 from lmrl_gym_torch.loops.checkpoints import LoopState, dump_modules, restore_module
 from lmrl_gym_torch.loops.offline import OfflineLoopConfig, offline_train_loop
 from lmrl_gym_torch.loops.online import OnlineLoopConfig, online_train_loop
-from lmrl_gym_torch.loops.online_device import OnlineDeviceConfig, online_ilql_wordle, wordle_rollout_to_ilql_batch
+from lmrl_gym_torch.loops.online_device import (
+    OnlineDeviceConfig,
+    markov_rollout_to_ilql_batch,
+    online_ilql_markov,
+    online_ilql_wordle,
+    wordle_rollout_to_ilql_batch,
+)
 from lmrl_gym_torch.models.config import gpt2_small
 from lmrl_gym_torch.models.generation import SamplingConfig
 from lmrl_gym_torch.models.heads import LinearHead, LinearHeadConfig, MLPHead, MLPHeadConfig
@@ -219,7 +255,13 @@ from lmrl_gym_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_fwd,
 )
-from lmrl_gym_torch.scripts import maze_ilql_gate, maze_ppo_gate, text_nav_ppo_gate, wordle_ilql_gate
+from lmrl_gym_torch.scripts import (
+    chess_ilql_gate,
+    maze_ilql_gate,
+    maze_ppo_gate,
+    text_nav_ppo_gate,
+    wordle_ilql_gate,
+)
 from lmrl_gym_torch.text.frames import (
     Text,
     TextTrajectory,
@@ -399,8 +441,16 @@ def phase_device() -> str:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    chess_build = {}
+    # the chess library (g++) builds beside the kernels (one nvcc per source)
+    chess_thread = threading.Thread(target=lambda: chess_build.update(path=chess_engine.build(),
+                                                                      s=time.perf_counter() - t0))
+    chess_thread.start()
     reports = _build.build_all(["flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc", "decode_attn"])
     log(f"kernel build: {time.perf_counter() - t0:.2f} s for {sorted(reports) or 'nothing (cached)'}")
+    chess_thread.join()
+    check("path" in chess_build, "the chess library did not build")
+    log(f"chess library build (g++ {' '.join(chess_engine.CXX_FLAGS)}): {chess_build['s']:.2f} s, {chess_build['path']}")
     for name, report in sorted(reports.items()):
         for line in report.splitlines():
             if "Compiling entry function" in line:
@@ -717,7 +767,67 @@ def phase_path_checks() -> dict:
             errs["flash_fwd"] = max(errs["flash_fwd"], err)
             log(f"check flash_fwd B=100 H={h} Tq=S={MAZE_LEN} right-padded (score call) {str(dtype)[6:]}: "
                 f"max_abs_err={err:.3e} (atol, rtol {TOL[dtype]}) lse_err={lse_err:.3e}")
+    _check_markov_shapes(gen, errs)
     return errs
+
+
+# the Markov paths' shapes (batch, heads, obs, act): the 3k rollouts (maze,
+# chess FEN), the online guided chess rollouts (B=256), the chess gate's
+# evals (d256 H4, grid: 72 + 8)
+MARKOV_ROLLOUT_SHAPES = ((512, H, 20, 11), (512, H, 96, 8), (256, H, 96, 8), (256, 4, 72, 8))
+# their train steps (batch, heads, T): online Markov ILQL windows (chess FEN
+# 104, the maze's 31), the chess gate's BC (B=64) and ILQL (B=512) windows
+MARKOV_TRAIN_SHAPES = ((64, H, 104), (64, H, 31), (64, 4, 80), (512, 4, 80))
+# the chess gate's reranker score calls at the full budget (batch, heads, T):
+# a full chunk of 4,096 candidate windows and the held-out pool's last chunk
+MARKOV_SCORE_SHAPES = ((4096, 4, 80), (2776, 4, 80))
+
+
+def _check_markov_shapes(gen, errs: dict) -> None:
+    """bf16, the Markov paths' dtype: K1 on each turn's observation prefill
+    (Tq = S = obs, a cache view of the obs + act window) and K4 at every
+    action slot of the window; K1, K2 and K3 on the train windows, and K1
+    alone on the next-window forward (T = obs) and the gate's score calls."""
+    dtype = torch.bfloat16
+    for b, h, obs, act in MARKOV_ROLLOUT_SHAPES:
+        W = obs + act
+        q, k, v, bias = _flash_inputs(obs, obs, dtype, False, gen, b, h, t_max=W)
+        err, lse_err = _check_fwd(q, k, v, bias, torch.ones(b, obs, dtype=torch.bool, device="cuda"), dtype,
+                                  f"B={b} H={h} prefill {obs} of {W}")
+        errs["flash_fwd"] = max(errs["flash_fwd"], err)
+        dec_err = 0.0
+        for index in range(obs, W):
+            q, k, v, bias = _decode_inputs(index, dtype, False, gen, b, h, t_max=W)
+            dec_err = max(dec_err, _check_decode(q, k, v, index, bias, dtype, f"B={b} H={h} T_max={W} index={index}"))
+        errs["decode_attn"] = max(errs["decode_attn"], dec_err)
+        log(f"check markov B={b} H={h} obs={obs} act={act} bf16: flash_fwd prefill (cache view of {W}) "
+            f"max_abs_err={err:.3e} lse_err={lse_err:.3e}; decode_attn index {obs}..{W - 1} max_abs_err={dec_err:.3e}")
+    scale = 1.0 / DH**0.5
+    for b, h, T in MARKOV_TRAIN_SHAPES:
+        for Tq in (T, T - 8) if T != 31 else (T, 20):  # the window, then the next window's forward alone
+            args, rows, _ = _bwd_inputs(Tq, Tq, dtype, False, gen, b, h)
+            fwd_err, _ = _check_fwd(*args[:4], rows, dtype, f"B={b} H={h} T={Tq}")
+            errs["flash_fwd"] = max(errs["flash_fwd"], fwd_err)
+            if Tq != T:
+                continue
+            got = (flash_bwd_dq(*args, True, scale), *flash_bwd_dkv(*args, True, scale))
+            ref = (_plain_bwd_dq(*args, True, scale), *_plain_bwd_dkv(*args, True, scale))
+            torch.cuda.synchronize()
+            line = [f"flash_fwd_max_abs_err={fwd_err:.3e}"]
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                err = (a.float() - r.float()).abs().max().item()
+                over = ((a.float() - r.float()).abs() - GRAD_TOL[dtype][1] * r.float().abs()).max().item()
+                check(over <= GRAD_TOL[dtype][0], f"flash_bwd {name} B={b} H={h} T={T}: max abs err {err} over "
+                                                  f"tolerance {GRAD_TOL[dtype]}")
+                kernel = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+                errs[kernel] = max(errs.get(kernel, 0.0), err)
+                line.append(f"{name}_max_abs_err={err:.3e}")
+            log(f"check markov train B={b} H={h} T={T} bf16: " + " ".join(line) + f" (atol, rtol {GRAD_TOL[dtype]})")
+    for b, h, T in MARKOV_SCORE_SHAPES:
+        args, rows, _ = _bwd_inputs(T, T, dtype, False, gen, b, h)
+        err, lse_err = _check_fwd(*args[:4], rows, dtype, f"score call B={b} H={h} T={T}")
+        errs["flash_fwd"] = max(errs["flash_fwd"], err)
+        log(f"check markov score call B={b} H={h} T={T} bf16: flash_fwd max_abs_err={err:.3e} lse_err={lse_err:.3e}")
 
 
 def phase_train_shapes() -> dict:
@@ -903,11 +1013,14 @@ def profile_run(label: str, run, unprofiled_s: float) -> None:
     """One more run (a rollout, a train step) under torch.profiler: device
     busy time (one stream, so the sum of kernel times) against the wall
     clock of this run and of the unprofiled one, the device time by kernel
-    category and the top kernels."""
+    category and the top kernels. Device activity only: recording every
+    host op as well made the trace's processing several times slower (a
+    B=256 two-trunk Markov rollout, ~48,000 launches: 34 s against 13 s on
+    the H100) and changes no device number."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(PROFILER_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -1006,22 +1119,24 @@ def phase_slice() -> dict:
 
 
 @contextlib.contextmanager
-def traced_online_round(record: list):
-    """Wraps the calls `online_ilql_wordle` makes each round — the rollout
-    and every train step — so each records its launch counts (set to 0
-    just before the call, read just after it) and its wall time; the
-    rollout also keeps its output and a copy of the trunk's final norm
-    weights at the round's start."""
-    rollout_wordle, make_step = actor.rollout_wordle, online_device.make_ilql_train_step
+def traced_online_round(record: list, rollout_name: str = "rollout_wordle"):
+    """Wraps the calls an online loop makes each round — the rollout
+    (`actor.<rollout_name>`) and every train step — so each records its
+    launch counts (set to 0 just before the call, read just after it) and
+    its wall time; the rollout also keeps its output and a copy of the
+    trunk's final norm weights at the round's start."""
+    rollout_fn, make_step = getattr(actor, rollout_name), online_device.make_ilql_train_step
 
-    def rollout(env, step_fn, params, *args, **kwargs):
+    def rollout(env, *args, **kwargs):
+        params = next(a for a in args if isinstance(a, dict))
         weights = params["base"].ln_f.weight.detach().clone()
         _reset_counts()
         t0 = time.perf_counter()
-        out = rollout_wordle(env, step_fn, params, *args, **kwargs)
-        torch.cuda.synchronize()
+        res = rollout_fn(env, *args, **kwargs)
+        _sync(env.device)
+        out = res if isinstance(res, actor.WordleRollout) else res[0]  # rollout_markov: (rollout, state)
         record.append(dict(kind="rollout", s=time.perf_counter() - t0, counts=_all_counts(), out=out, weights=weights))
-        return out
+        return res
 
     def make(*args, **kwargs):
         step = make_step(*args, **kwargs)
@@ -1030,17 +1145,19 @@ def traced_online_round(record: list):
             _reset_counts()
             t0 = time.perf_counter()
             res = step(*step_args, **step_kwargs)
-            torch.cuda.synchronize()
+            _sync(res[1].device)
             record.append(dict(kind="step", s=time.perf_counter() - t0, counts=_all_counts(), loss=res[1].item()))
             return res
 
         return traced
 
-    actor.rollout_wordle, online_device.make_ilql_train_step = rollout, make
+    setattr(actor, rollout_name, rollout)
+    online_device.make_ilql_train_step = make
     try:
         yield
     finally:
-        actor.rollout_wordle, online_device.make_ilql_train_step = rollout_wordle, make_step
+        setattr(actor, rollout_name, rollout_fn)
+        online_device.make_ilql_train_step = make_step
 
 
 def phase_online(config) -> dict:
@@ -2055,6 +2172,207 @@ def phase_ppo_gates(device="cuda", extra=()) -> dict:
     return out
 
 
+# ---------------- slice 8: the Markov actors, online Markov ILQL, the chess gate ----------------
+
+MARKOV_B, MARKOV_TURNS, MARKOV_REPS = 512, 8, 3  # bench.py::bench_actor_markov's operating point
+MARKOV_PROFILED_STEPS = 4  # 3u: train steps under the profiler
+MARKOV_VOCAB = 512
+MAZE_REWARDS, CHESS_REWARDS = {0.0, -1.0, -4.0}, {1.0, 0.0, -1.0}
+CHESS_GATE_ARGS = ["--train-pool", "64", "--eval-pool", "32", "--bc-batches", "20", "--ilql-batches", "20",
+                   "--eval-every", "10", "--obs", "grid"]
+
+
+def markov_config():
+    """GPT-2-small (d768 L12 H12) over a 512-token vocab (a multiple of 128)."""
+    return gpt2_small().replace(vocab_size=MARKOV_VOCAB, pad_vocab_to_multiple=128, embd_pdrop=0.0, resid_pdrop=0.0,
+                                attn_pdrop=0.0)
+
+
+def markov_envs(device="cuda") -> dict:
+    """The maze (double_t_maze, its goal, 8 moves) and KQ-K chess (FEN, 8 moves)."""
+    maze = MazeTokenVecEnv(MazeVectorEnv(double_t_maze(), np.asarray([DOUBLE_T_GOAL]), max_steps=8, device=device))
+    return {"maze": maze, "chess": ChessEndgameVectorEnv(piece="Q", max_steps=8, obs_mode="fen", device=device)}
+
+
+def _frame_fens(obs: torch.Tensor) -> list:
+    """The FEN spelled in each FEN observation frame (chars at even slots)."""
+    return [bytes(row).decode().rstrip(" ") for row in obs[:, 0:-1:2].cpu().numpy().astype(np.uint8)]
+
+
+def _check_markov_rollout(out, name: str, env, batch: int, n_turns: int) -> None:
+    """Shapes; turn liveness that never comes back; rewards in the env's
+    set; illegal flags only on live turns; every chess frame's FEN valid
+    for the port's engine binding."""
+    check(out.obs_tokens.shape == (batch, n_turns, env.OBS_LEN) and out.act_tokens.shape == (batch, n_turns, env.ACT_LEN),
+          f"markov {name}: shapes {tuple(out.obs_tokens.shape)} {tuple(out.act_tokens.shape)}")
+    live = out.turn_live
+    check(bool(live[:, 0].all()) and bool((live[:, :-1] >= live[:, 1:]).all()), f"markov {name}: a turn came back to life")
+    rewards = set(out.turn_reward[live].unique().tolist())
+    check(rewards <= (MAZE_REWARDS if name == "maze" else CHESS_REWARDS), f"markov {name}: rewards {rewards}")
+    check(bool((out.turn_reward[~live] == 0).all()) and not bool((out.turn_illegal & ~live).any()),
+          f"markov {name}: a dead turn carries a reward or an illegal flag")
+    if name == "chess":
+        fens = _frame_fens(torch.cat([out.obs_tokens.reshape(-1, env.OBS_LEN), out.final_obs]))
+        bad = [f for f in fens if not chess_engine.validate_fen(f)]
+        check(not bad, f"markov chess: {len(bad)} of {len(fens)} observation FENs fail the engine: {bad[:3]}")
+
+
+def phase_markov(device="cuda", config=None) -> dict:
+    """Phase 3k: the Markov actors at bench_actor_markov's point —
+    `rollout_markov` of GPT-2-small (bf16 weights from a seed) through
+    `make_lm_step_fn`, B=512, 8 turns, on the maze and on chess: one
+    warm-up and MARKOV_REPS timed rollouts each, exact launches per rollout
+    (K1 8 x L; K4 8 x ACT_LEN x L), the rollout's invariants, env-steps/s;
+    one rollout each profiled. The two-trunk value-guided chess rollout
+    runs in phase 3u, the online loop's own."""
+    config = config or markov_config()
+    L = config.num_layers
+    t0 = time.perf_counter()
+    core = LMCore(config, device=device)
+    dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+    lm = init_params(config, seed=0, device=device, dtype=dtype)
+    _sync(device)
+    log(f"markov setup (3k): gpt2-small vocab {config.vocab_size} {str(dtype)[6:]} weights: {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=device).manual_seed(3)
+    out = {}
+    for name, env in markov_envs(device).items():
+        step_fn, carry0 = actor.make_lm_step_fn(core, MARKOV_B, total_len=env.OBS_LEN + env.ACT_LEN)
+
+        def rollout(state0):
+            return actor.rollout_markov(env, MARKOV_TURNS, step_fn, lm, carry0, state0, generator=gen)
+
+        rollout(env.reset(MARKOV_B, gen))  # warm-up
+        want = _want(L, fwd=MARKOV_TURNS, dec=MARKOV_TURNS * env.ACT_LEN)
+        times = []
+        for rep in range(MARKOV_REPS):
+            (ro, _), counts, s = _counted(rollout, env.reset(MARKOV_B, gen), device=device)
+            check(counts == want, f"markov {name} rollout {rep}: {_fmt_counts(counts)}, want {want}")
+            _check_markov_rollout(ro, name, env, MARKOV_B, MARKOV_TURNS)
+            times.append(s)
+            n_live = int(ro.turn_live.sum())
+            log(f"markov rollout (3k) {name} {rep} B={MARKOV_B} turns={MARKOV_TURNS}: {s:.4f} s, {_fmt_counts(counts)}; "
+                f"live turns {n_live}, return {float(ro.turn_reward.sum(1).mean()):.3f}, "
+                f"illegal rate {float(ro.turn_illegal.sum()) / max(n_live, 1):.3f}")
+        dt = sorted(times)[len(times) // 2]
+        log(f"markov rollout (3k) {name} median of {MARKOV_REPS}: {dt:.4f} s (min {min(times):.4f}, max {max(times):.4f}), "
+            f"env_steps_per_s={MARKOV_B * MARKOV_TURNS / dt:.1f} tokens_per_s="
+            f"{MARKOV_B * MARKOV_TURNS * (env.OBS_LEN + env.ACT_LEN) / dt:.1f}")
+        if torch.device(device).type == "cuda":
+            profile_run(f"markov rollout {name}", lambda: rollout(env.reset(MARKOV_B, gen)), dt)
+        out.update(_path_counts(f"markov_{name}", counts))
+        out[f"markov_{name}_s"] = dt
+
+    return out
+
+
+def phase_online_markov(device="cuda", config=None) -> dict:
+    """Phase 3u: `online_ilql_markov` on chess (FEN, 8 moves, 8 turns) at
+    full width: GPT-2-small with f32 parameters and bf16 activations, twin
+    MLP Q heads and a V head, a separate target base, a frozen π_β (two
+    trunks), OnlineDeviceConfig(n_rounds=2, rollout_batch=256,
+    train_bsize=64). Per round: the rollout's launches (8 x 2L K1, 8 x 8 x
+    2L K4; the two-trunk value-guided chess rollout at B=256), each step's (3L K1: the trained, target and next-window
+    forwards; L K2/K3), a finite loss, base weights that move, rollout and
+    train wall time; then a rollout and four of a round's steps profiled."""
+    config = config or markov_config()
+    L = config.num_layers
+    core = LMCore(config, device=device)
+    env = markov_envs(device)["chess"]
+    base, q1, q2, v = _train_modules(config, device)
+    pi_beta = init_params(config, seed=9, device=device)
+    ilql_config = ILQLConfig(beta=4.0)
+    state = init_ilql_state(base, q1, q2, v, adamw(1e-4), adamw(1e-3), ilql_config)
+    ocfg = OnlineDeviceConfig(n_rounds=2, rollout_batch=256, train_bsize=64)
+    gen = torch.Generator(device=device).manual_seed(11)
+    record: list = []
+    t0 = time.perf_counter()
+    with traced_online_round(record, "rollout_markov"):
+        state, history = online_ilql_markov(core, state, env, MARKOV_TURNS, ilql_config, ocfg, pi_beta=pi_beta,
+                                            generator=gen)
+    total = time.perf_counter() - t0
+    want_roll = _want(L, fwd=2 * MARKOV_TURNS, dec=2 * MARKOV_TURNS * env.ACT_LEN)
+    want_step = _want(L, fwd=3, bwd=1)
+    rolls = [i for i, r in enumerate(record) if r["kind"] == "rollout"]
+    check(len(rolls) == ocfg.n_rounds == len(history), f"online markov: {len(rolls)} rollouts, {len(history)} rounds")
+    out = {}
+    for r, i in enumerate(rolls):
+        roll = record[i]
+        steps = record[i + 1: rolls[r + 1] if r + 1 < len(rolls) else len(record)]
+        live = roll["out"].turn_live
+        n_steps = max(1, min(live.numel() // ocfg.train_bsize, -(-int(live.sum()) // ocfg.train_bsize)))
+        check(len(steps) == n_steps and all(st["kind"] == "step" for st in steps),
+              f"online markov round {r}: {len(steps)} steps, want {n_steps}")
+        check(roll["counts"] == want_roll, f"online markov round {r} rollout: {_fmt_counts(roll['counts'])}, want {want_roll}")
+        _check_markov_rollout(roll["out"], "chess", env, ocfg.rollout_batch, MARKOV_TURNS)
+        for j, st in enumerate(steps):
+            check(st["counts"] == want_step, f"online markov round {r} step {j}: {_fmt_counts(st['counts'])}, want {want_step}")
+            check(math.isfinite(st["loss"]), f"online markov round {r} step {j}: loss {st['loss']}")
+        if r:
+            check(not torch.equal(record[rolls[r - 1]]["weights"], roll["weights"]),
+                  f"online markov round {r}: the trunk's weights did not move since round {r - 1}")
+        m = history[r]
+        check(math.isfinite(m["loss"]), f"online markov round {r}: loss {m['loss']}")
+        train_s = sum(st["s"] for st in steps)
+        log(f"online markov round (3u) {r}: rollout B={ocfg.rollout_batch} {roll['s']:.3f} s ({_fmt_counts(roll['counts'])}), "
+            f"train {train_s:.3f} s for {len(steps)} steps B={ocfg.train_bsize} T={env.OBS_LEN + env.ACT_LEN} "
+            f"(per step {_fmt_counts(steps[0]['counts'])}); return {m['mean_episode_reward']:.3f} turns "
+            f"{m['mean_turns']:.2f} illegal {m['illegal_rate']:.3f} loss {m['loss']:.4f}")
+        out = {**_path_counts("online_markov_round", tuple(sum(c) for c in zip(roll["counts"], *(st["counts"] for st in steps)))),
+               **_path_counts("online_markov_step", steps[0]["counts"]), **_path_counts("markov_guided", roll["counts"])}
+    log(f"online markov ILQL (3u): {ocfg.n_rounds} rounds in {total:.3f} s")
+    if torch.device(device).type == "cuda":
+        step_fn, carry0 = actor.make_value_guided_step_fn(core, ocfg.rollout_batch, two_trunks=True, twin_q=True,
+                                                          beta=ilql_config.beta, total_len=env.OBS_LEN + env.ACT_LEN)
+        policy = {"pi_beta": pi_beta, "base": state.base.params, "q1": state.q1_head.params, "q2": state.q2_head.params}
+
+        def rollout():
+            return actor.rollout_markov(env, MARKOV_TURNS, step_fn, policy, carry0, env.reset(ocfg.rollout_batch, gen),
+                                        generator=gen)
+
+        profile_run("online markov rollout", rollout, record[rolls[-1]]["s"])
+        batch = markov_rollout_to_ilql_batch(record[rolls[-1]]["out"])
+        step = make_ilql_train_step(core, ilql_config, ocfg.pad_token_id)
+        # four of the round's steps: the profiler's own cost grows with the
+        # launches it records (~2,300 per step)
+        mb, steps = ocfg.train_bsize, record[rolls[-1] + 1: rolls[-1] + 1 + MARKOV_PROFILED_STEPS]
+
+        def train_steps():
+            for i in range(len(steps)):
+                step(state, ILQLBatch(*(x[i * mb: (i + 1) * mb] for x in batch)))
+
+        profile_run(f"online markov train steps ({len(steps)} of a round)", train_steps, sum(st["s"] for st in steps))
+    return out
+
+
+def phase_chess_gate(device="cuda", extra=()) -> dict:
+    """Phase 3h: the port's chess gate at its own width (d256 L4 H4, byte
+    vocab, --obs grid) and a cut budget (CHESS_GATE_ARGS): launch counts
+    exactly the budget's — per BC step L K1/K2/K3, per ILQL step L each (no
+    separate target base, no next window), per reranker score call L K1,
+    the guided greedy turn 2L K1 and 2L x ACT_LEN K4, the legality-masked
+    decode the same — and every rate finite in [0, 1]."""
+    args = chess_ilql_gate.parse_args(CHESS_GATE_ARGS + list(extra) + ["--device", device])
+    L = args.layers
+    g = chess_ilql_gate.Gate(args)
+    n_moves = []
+    legal_moves = g.legal_moves
+    g.legal_moves = lambda pool: (lambda rows: (n_moves.append(len(rows)), rows)[1])(legal_moves(pool))
+    result, counts, s = _counted(chess_ilql_gate.run, g, device=device)
+    score_calls = sum(-(-n // chess_ilql_gate.SCORE_CHUNK) for n in n_moves[:-1])  # the last call: the masked decode
+    A = g.env.ACT_LEN
+    want = tuple(sum(x) for x in zip(_want(L, fwd=args.bc_batches + args.ilql_batches, bwd=args.bc_batches + args.ilql_batches),
+                                     _want(L, fwd=score_calls), _want(L, fwd=2 + 2, dec=2 * A + 2 * A)))
+    check(len(n_moves) == args.ilql_batches // args.eval_every + 3, f"chess gate: {len(n_moves)} legal-move sets")
+    check(counts == want, f"chess gate: {_fmt_counts(counts)}, want {want}")
+    rates = [v for k, v in result.items() if k != "curve"] + [c["rerank"] for c in result["curve"]]
+    check(all(math.isfinite(r) and 0.0 <= r <= 1.0 for r in rates), f"chess gate: rates {result}")
+    log(f"chess gate (3h) ({' '.join(CHESS_GATE_ARGS + list(extra))}): {s:.1f} s, {score_calls} score calls over "
+        f"{n_moves} candidates, {_fmt_counts(counts)}; result {result}")
+    out = _path_counts("chess_gate", counts)
+    out["chess_gate_s"] = s
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
@@ -2086,6 +2404,12 @@ def main() -> int:
         launches.update(phase_loops(launches["config"]))
         launches.update(phase_ppo_gates())
         log(f"phases 3n, 3l, 3w: {time.perf_counter() - t_slice7:.1f} s")
+        t_slice8 = time.perf_counter()
+        for name, phase in (("3k", phase_markov), ("3u", phase_online_markov), ("3h", phase_chess_gate)):
+            t0 = time.perf_counter()
+            launches.update(phase())
+            log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        log(f"phases 3k, 3u, 3h: {time.perf_counter() - t_slice8:.1f} s")
         phase_card_vs_cpu(launches["base"], launches["config"])
         phase_train_card_vs_cpu(launches["config"])
     except SmokeFailure as e:
@@ -2135,7 +2459,8 @@ def main() -> int:
                      "ppo_step_bc", "ppo_forward", "ppo_rollout_turn", "score_call", "score_call_ilql_pi_beta",
                      "score_call_mc", "maze_gate_cql", "maze_gate_mc", "text_nav_turn", "ppo_forward_text_nav",
                      "ppo_step_text_nav", "ppo_step_text_nav_bc", "offline_loop_step", "online_loop_step",
-                     "ppo_gate_text_nav", "ppo_gate_maze"):
+                     "ppo_gate_text_nav", "ppo_gate_maze", "markov_maze", "markov_chess", "markov_guided",
+                     "online_markov_round", "online_markov_step", "chess_gate"):
             if f"{entry['name']}_{path}" in launches:
                 entry[f"launches_{path}"] = launches[f"{entry['name']}_{path}"]
             if f"{entry['name']}_tc_{path}" in launches:

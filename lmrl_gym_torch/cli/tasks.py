@@ -1,8 +1,10 @@
-"""Task registry, the maze and text-nav parts: the port of
+"""Task registry, the maze, chess and text-nav parts: the port of
 `transitions_to_chain`, `build_maze_env`, `generate_maze_chains`,
-`build_text_nav_env` and `generate_text_nav_chains` from
-`lmrl_gym_tpu/cli/tasks.py` (host only), with the `Task` record and a
-`TASKS` table that holds the tasks ported so far.
+`build_chess_endgame_env`, `generate_chess_endgame_chains`,
+`build_chess_env`, `generate_chess_chains`, `build_text_nav_env` and
+`generate_text_nav_chains` from `lmrl_gym_tpu/cli/tasks.py` (host only),
+with the `Task` record and a `TASKS` table that holds the tasks ported so
+far.
 """
 from __future__ import annotations
 
@@ -168,8 +170,51 @@ def generate_text_nav_chains(n: int, seed: int, known_rooms: Optional[List[str]]
     return chains
 
 
+# ---------------- chess endgames ----------------
+
+
+def build_chess_endgame_env(pieces: str = "kQK", max_moves: int = 50) -> TextEnv:
+    from lmrl_gym_torch.envs.chess.env import FenChessEnv, large_piece_random_endgame
+
+    return FenChessEnv(from_position=large_piece_random_endgame(pieces, rng=random.Random(0)), max_moves=max_moves)
+
+
+def generate_chess_endgame_chains(n: int, seed: int, pieces: str = "kQK") -> List[TextTrajectoryChain]:
+    from lmrl_gym_torch.envs.chess.data import generate_selfplay_games
+    from lmrl_gym_torch.envs.chess.env import large_piece_random_endgame
+
+    return generate_selfplay_games(
+        n,
+        from_position_fn=lambda rng: large_piece_random_endgame(pieces, rng=rng),
+        agent_elo=2000,
+        opponent_elo=1200,
+        max_moves=50,
+        seed=seed,
+    )
+
+
+# ---------------- chess (full game) ----------------
+
+
+def build_chess_env(max_moves: int = 100, opponent_elo: int = 1200) -> TextEnv:
+    """Full chess from the standard start against the engine opponent
+    (reference FenChessHistoryEnv over full games, chess/env/env.py:218-244)."""
+    from lmrl_gym_torch.envs.chess.env import FenChessEnv
+
+    return FenChessEnv(max_moves=max_moves, opponent_elo=opponent_elo)
+
+
+def generate_chess_chains(n: int, seed: int) -> List[TextTrajectoryChain]:
+    from lmrl_gym_torch.envs.chess.data import generate_selfplay_games
+
+    return generate_selfplay_games(n, from_position_fn=None, agent_elo=2000, opponent_elo=1200, max_moves=60,
+                                   seed=seed)
+
+
 TASKS: Dict[str, Task] = {
     "maze": Task("maze", build_maze_env, generate_maze_chains, max_length=192),
+    "chess": Task("chess", build_chess_env, generate_chess_chains, max_length=160),
+    "chess_endgames": Task("chess_endgames", build_chess_endgame_env, generate_chess_endgame_chains, max_length=160),
     "text_nav": Task("text_nav", build_text_nav_env, generate_text_nav_chains, max_length=512),
     "text_nav_partial": Task(
         "text_nav_partial",

@@ -1,7 +1,8 @@
-"""Fused Wordle actor: LM decoding and vectorized env stepping on one
-device, with no host round-trips inside an episode. The port of
+"""Fused actors: LM decoding and vectorized env stepping on one device,
+with no host round-trips inside an episode. The port of
 `lmrl_gym_tpu/loops/actor.py` (its `lax.scan`s become Python loops over
-the same static schedule).
+the same static schedule): the Wordle actors, and `rollout_markov` for
+Markov token envs (the maze and chess endgames).
 
 Under the byte tokenizer the reformatted Wordle protocol is fixed-width:
 
@@ -16,6 +17,8 @@ observation append. Every trunk therefore runs 7 multi-token cached
 forwards (the flash kernel) and 60 single-token steps (the decode kernel)
 per episode. `rollout_wordle_scripted` writes the same stream from scripted
 guesses, with no model: the behavior data of the Wordle ILQL gate.
+`rollout_wordle_segmented` is the JAX package's turn-sized-cache variant,
+which here is `rollout_wordle` itself.
 """
 from __future__ import annotations
 
@@ -224,10 +227,7 @@ def rollout_wordle(
         vonehot = F.one_hot(vchars.T, 26).float()
 
     def sample(logits, t, slot):
-        if greedy:
-            return torch.argmax(logits, dim=-1)
-        gumbel = noise.decode[t, slot] if noise is not None else None
-        return categorical(logits / max(temperature, 1e-6), generator, gumbel)
+        return _sample(logits, temperature, greedy, generator, None if noise is None else noise.decode[t, slot])
 
     turn_reward, turn_live = [], []
     for t in range(N_TRIES):
@@ -329,3 +329,112 @@ def rollout_wordle_scripted(
         turn_reward.append(state.reward * live)
         turn_live.append(live)
     return _rollout_result(tokens, turn_reward, turn_live)
+
+
+@torch.inference_mode()
+def rollout_wordle_segmented(
+    env: WordleVectorEnv,
+    step_fn: StepFn,
+    params: Any,
+    init_carry: Any,
+    batch: int,
+    temperature: float = 1.0,
+    greedy: bool = False,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[WordleNoise] = None,
+) -> WordleRollout:
+    """The JAX package's turn-sized-cache variant of `rollout_wordle`, which
+    it uses to cut its decode attention's reads. The port's decode kernel
+    already reads only cache slots 0..index, so this is `rollout_wordle`
+    itself: the same episode on the same draws, at the same cost."""
+    return rollout_wordle(env, step_fn, params, init_carry, batch, temperature, greedy,
+                          generator=generator, noise=noise)
+
+
+def _sample(logits, temperature: float, greedy: bool, generator, gumbel) -> torch.Tensor:
+    """The next token: argmax, or `jax.random.categorical`'s draw at the
+    temperature (Gumbel noise `gumbel`, or drawn from `generator`)."""
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    return categorical(logits / max(temperature, 1e-6), generator, gumbel)
+
+
+# ---------------------------------------------------------------------------
+# The generic fused actor for Markov turn-based token envs (chess endgames,
+# the maze): each turn is an independent (obs, action) window — the model
+# sees only the current observation (the reference's FenChessHistoryEnv
+# shape, chess/env/env.py:218-244) — so the KV cache restarts every turn
+# and is sized to one OBS_LEN + ACT_LEN window, not the whole episode.
+# ---------------------------------------------------------------------------
+
+
+class MarkovRollout(NamedTuple):
+    obs_tokens: torch.Tensor  # [B, N_TURNS, OBS_LEN] int64
+    act_tokens: torch.Tensor  # [B, N_TURNS, ACT_LEN] int64
+    turn_reward: torch.Tensor  # [B, N_TURNS] float32 (0 after done)
+    turn_live: torch.Tensor  # [B, N_TURNS] bool
+    final_obs: torch.Tensor  # [B, OBS_LEN] observation after the last turn
+    turn_illegal: torch.Tensor  # [B, N_TURNS] bool (the env's flag, live turns)
+
+    def window_tokens(self) -> torch.Tensor:
+        """[B, N, OBS + ACT]: the per-turn training windows."""
+        return torch.cat([self.obs_tokens, self.act_tokens], dim=-1)
+
+
+class MarkovNoise(NamedTuple):
+    """Sampling noise for one Markov rollout, handed in to replay another
+    sampler's draws: `decode` [N_TURNS, ACT_LEN, B, V] Gumbel draws per
+    action slot; `env` [N_TURNS, ...] each turn's env-step noise (the chess
+    reply's [B, 8] Gumbels), or None for a deterministic env."""
+
+    decode: torch.Tensor
+    env: Optional[torch.Tensor] = None
+
+
+@torch.inference_mode()
+def rollout_markov(
+    env,  # token env: obs_tokens(state), step(state, act_tokens, generator, noise), OBS_LEN, ACT_LEN
+    n_turns: int,
+    step_fn: StepFn,
+    params: Any,
+    init_carry: Any,  # caches at index 0, reused every turn
+    state0: Any,  # the env state from env.reset(...)
+    temperature: float = 1.0,
+    greedy: bool = False,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[MarkovNoise] = None,
+) -> Tuple[MarkovRollout, Any]:
+    """n_turns of (observation prefill → ACT_LEN decode steps → env.step),
+    the cache restarting from `init_carry` every turn. Every sampled token,
+    the last included, goes through `step_fn`, as the JAX package's decode
+    scan runs it. Sampling uses `generator`, or the replayed draws in
+    `noise`. Returns (MarkovRollout, final env state)."""
+    state = state0
+    obs_t, act_t, rew_t, live_t, ill_t = [], [], [], [], []
+    for t in range(n_turns):
+        live = ~state.done
+        obs = env.obs_tokens(state)
+        logits, carry = step_fn(params, obs, init_carry)
+        last = logits[:, -1, :]
+        act = []
+        for slot in range(env.ACT_LEN):
+            tok = _sample(last, temperature, greedy, generator, None if noise is None else noise.decode[t, slot])
+            new_logits, carry = step_fn(params, tok[:, None], carry)
+            last = new_logits[:, -1, :]
+            act.append(tok)
+        act = torch.stack(act, dim=1)
+        env_noise = None if noise is None or noise.env is None else noise.env[t]
+        state = env.step(state, act, generator, env_noise)
+        obs_t.append(obs)
+        act_t.append(act)
+        rew_t.append(state.reward * live)
+        live_t.append(live)
+        ill_t.append(state.illegal & live)
+    return MarkovRollout(
+        obs_tokens=torch.stack(obs_t, dim=1),
+        act_tokens=torch.stack(act_t, dim=1),
+        turn_reward=torch.stack(rew_t, dim=1),
+        turn_live=torch.stack(live_t, dim=1),
+        final_obs=env.obs_tokens(state),
+        turn_illegal=torch.stack(ill_t, dim=1),
+    ), state

@@ -1,6 +1,7 @@
-"""On-device online ILQL on Wordle: fused actor rollouts feeding ILQL
-updates, rollouts and updates both on the card. The port of the Wordle half
-of `lmrl_gym_tpu/loops/online_device.py`.
+"""On-device online ILQL: fused actor rollouts feeding ILQL updates,
+rollouts and updates both on the card. The port of
+`lmrl_gym_tpu/loops/online_device.py`: Wordle, and any Markov token env
+(the maze, chess endgames).
 
 A round is one `rollout_wordle` of the shared-trunk β-perturbed policy
 (base + β·min(q1,q2)) over the LIVE modules that the optimizer updates in
@@ -11,7 +12,7 @@ random permutation. The only host work is loop control and metric fetches.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -110,6 +111,123 @@ def online_ilql_wordle(
             "mean_episode_reward": float((out.turn_reward * out.turn_live).sum(dim=1).mean()),
             "win_rate": float(out.win.float().mean()),
             "mean_turns": float(out.n_turns.float().mean()),
+            "loss": float(torch.stack(losses).mean()),
+        }
+        history.append(metrics)
+    return state, history
+
+
+# ---------------------------------------------------------------------------
+# The Markov-env variant (chess endgames, the maze): per-turn (obs, act)
+# windows with chain bootstrapping — next_token_ids is the NEXT turn's
+# observation, the reference's chess ILQL chain convention (FEN windows
+# linked by next-state tokens, algorithms/ilql/data.py:10-79).
+# ---------------------------------------------------------------------------
+
+
+def markov_rollout_to_ilql_batch(out: actor_mod.MarkovRollout) -> ILQLBatch:
+    """[B, N]-turn rollout → [B·N] one-window-per-turn ILQLBatch; every
+    tensor built outside inference mode, so autograd may save it."""
+    B, N, obs_len = out.obs_tokens.shape
+    W = obs_len + out.act_tokens.shape[-1]
+    device = out.obs_tokens.device
+    live = out.turn_live  # [B, N]
+    sta = torch.zeros((B, N, W - 1), dtype=torch.bool, device=device)
+    # token t+1 is an action ⇔ t ∈ [obs_len - 1, W - 2]; masked to live turns
+    sta[:, :, obs_len - 1:] = live[:, :, None]
+    rewards = torch.zeros((B, N, W - 1), dtype=torch.float32, device=device)
+    rewards[:, :, W - 2] = out.turn_reward * live
+    # the bootstrap chain: the next turn's obs (final_obs after the last
+    # turn); done when the next turn was never played
+    next_obs = torch.cat([out.obs_tokens[:, 1:], out.final_obs[:, None, :]], dim=1)
+    next_live = torch.cat([live[:, 1:], torch.zeros((B, 1), dtype=torch.bool, device=device)], dim=1)
+    dones = (~next_live).reshape(B * N)
+    return ILQLBatch(
+        input_ids=out.window_tokens().reshape(B * N, W).clone(),
+        should_take_action=sta.reshape(B * N, W - 1),
+        rewards=rewards.reshape(B * N, W - 1),
+        dones=dones,
+        next_token_ids=next_obs.reshape(B * N, obs_len).clone(),
+        next_dones=dones.clone(),
+    )
+
+
+class MarkovRoundReplay(NamedTuple):
+    """One Markov round's draws, handed in to replay another sampler's: the
+    env reset's (chess: the [3, 8, B] squares; the maze: `MazeResetDraws`),
+    the rollout's noise, and one permutation of the B·N windows per epoch."""
+
+    reset: Any
+    noise: actor_mod.MarkovNoise
+    perms: List[torch.Tensor]
+
+
+def online_ilql_markov(
+    core: LMCore,
+    state: ILQLTrainState,
+    env,  # token env: ChessEndgameVectorEnv, MazeTokenVecEnv, ...
+    n_turns: int,
+    ilql_config: ILQLConfig,
+    config: OnlineDeviceConfig,
+    pi_beta: Optional[torch.nn.Module] = None,
+    generator: Optional[torch.Generator] = None,
+    replay: Optional[List[MarkovRoundReplay]] = None,
+) -> Tuple[ILQLTrainState, list]:
+    """Round-based online ILQL over a Markov token env, rollouts and updates
+    on `env`'s device → (final state, per-round metrics); `state` is trained
+    in place.
+
+    `pi_beta`: an optional FROZEN behavior prior. With it, decoding is
+    two-trunk π_β + β·min(q1,q2) with π_β fixed (the reference's
+    value_rl_base structure, generation.py:36-121); without it the value
+    base doubles as π_β. Each epoch's permutation is stable-sorted so the
+    live windows come first, and a round takes at most as many minibatches
+    as the live windows fill: an all-dead minibatch has zero loss, but
+    AdamW would still step on stale momentum and weight decay and the
+    polyak target would still mix. Draws come from `generator`, or round i
+    replays `replay[i]`."""
+    B = config.rollout_batch
+    step_fn, carry0 = actor_mod.make_value_guided_step_fn(
+        core, batch=B, two_trunks=pi_beta is not None, twin_q=True, beta=ilql_config.beta,
+        total_len=env.OBS_LEN + env.ACT_LEN,
+    )
+    train_step = make_ilql_train_step(core, ilql_config, config.pad_token_id)
+
+    history: list = []
+    for rnd in range(config.n_rounds):
+        policy = {"base": state.base.params, "q1": state.q1_head.params, "q2": state.q2_head.params}
+        if pi_beta is not None:
+            policy["pi_beta"] = pi_beta
+        rep = None if replay is None else replay[rnd]
+        state0 = env.reset(B, generator, None if rep is None else rep.reset)
+        out, _ = actor_mod.rollout_markov(env, n_turns, step_fn, policy, carry0, state0, config.temperature, False,
+                                          generator=generator, noise=None if rep is None else rep.noise)
+        batch = markov_rollout_to_ilql_batch(out)
+        n_windows = batch.input_ids.shape[0]
+        live_flat = out.turn_live.reshape(-1)
+
+        losses = []
+        # windows past the last full minibatch are dropped for the epoch
+        bs = min(config.train_bsize, n_windows)
+        n = max(1, n_windows // bs)
+        n = max(1, min(n, -(-int(live_flat.sum()) // bs)))  # capped at the live prefix
+        for epoch in range(config.epochs_per_round):
+            if rep is None:
+                perm = torch.randperm(n_windows, generator=generator, device=env.device)
+            else:
+                perm = rep.perms[epoch].to(env.device)
+            perm = perm[torch.argsort((~live_flat[perm]).to(torch.int8), stable=True)]
+            for i in range(n):
+                idx = perm[i * bs: (i + 1) * bs]
+                state, loss, _ = train_step(state, ILQLBatch(*(x[idx] for x in batch)), generator)
+                losses.append(loss)
+
+        live = out.turn_live
+        metrics: Dict[str, float] = {
+            "round": rnd,
+            "mean_episode_reward": float((out.turn_reward * live).sum(dim=1).mean()),
+            "mean_turns": float(live.sum(dim=1).float().mean()),
+            "illegal_rate": float((out.turn_illegal & live).sum().float() / live.sum().clamp(min=1).float()),
             "loss": float(torch.stack(losses).mean()),
         }
         history.append(metrics)

@@ -72,6 +72,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from lmrl_gym_torch.algos.ppo import PPOConfig, make_ppo_train_step
     from lmrl_gym_torch.algos.value_policy import LMServer, tokenize_histories_for_scoring
     from lmrl_gym_torch.core.optimizer import adam
+    from lmrl_gym_torch.envs.chess.vector import ChessEndgameVectorEnv
+    from lmrl_gym_torch.envs.maze.grids import DOUBLE_T_GOAL, double_t_maze
+    from lmrl_gym_torch.envs.maze.vector import MazeVectorEnv
     from lmrl_gym_torch.envs.wordle.vector import WordleVectorEnv, WordleVocab
     from lmrl_gym_torch.loops.actor import rollout_wordle_scripted
     from lmrl_gym_torch.loops.online_device import OnlineDeviceConfig, online_ilql_wordle
@@ -79,7 +82,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
     from lmrl_gym_torch.models.interface import LMCore
     from lmrl_gym_torch.models.transformer import KVCache, Transformer
-    from lmrl_gym_torch.scripts import maze_ilql_gate, maze_ppo_gate, text_nav_ppo_gate, wordle_ilql_gate
+    from lmrl_gym_torch.scripts import chess_ilql_gate, maze_ilql_gate, maze_ppo_gate, text_nav_ppo_gate, wordle_ilql_gate
     from lmrl_gym_torch.text.frames import Text
     from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
@@ -108,6 +111,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         lambda: maze_ilql_gate.main(["--n-chains", "1", "--bc-epochs", "1", "--ilql-epochs", "1"]),
         lambda: maze_ppo_gate.main(["--n-chains", "1", "--bc-epochs", "1", "--rounds", "1"]),
         lambda: text_nav_ppo_gate.main(["--n-episodes", "1", "--bc-epochs", "1", "--rounds", "1"]),
+        lambda: MazeVectorEnv(double_t_maze(), [DOUBLE_T_GOAL]),
+        lambda: ChessEndgameVectorEnv(),
+        lambda: chess_ilql_gate.main(["--train-pool", "1", "--eval-pool", "1", "--bc-batches", "1"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

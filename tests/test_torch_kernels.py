@@ -518,3 +518,29 @@ def test_bc_step_on_card_matches_cpu(cuda):
     for k, gb in out[1][1].items():
         assert (out[0][1][k] - gb).norm() <= 1e-4 * gb.norm() + 1e-8, k
 
+
+
+# the Markov actors' windows (obs, act): the maze (20, 11), chess FEN (96, 8)
+# and chess grid (72, 8); heads 12 (GPT-2-small) and 4 (the chess gate)
+MARKOV_WINDOWS = [(20, 11, 12), (96, 8, 12), (72, 8, 4)]
+
+
+@pytest.mark.parametrize("obs,act,H", MARKOV_WINDOWS)
+def test_markov_shapes_match_plain(cuda, obs, act, H):
+    """K1 on each turn's observation prefill (a cache view of the
+    obs + act window, no bias), K4 at every action slot of the window, and
+    K2/K3 on the training windows (T = obs + act) and the next-window
+    forward's T = obs, all bf16 as the Markov paths run them."""
+    B, Dh, W = 4, 64, obs + act
+    cache_k = _randn(B, H, W, Dh, dtype=torch.bfloat16, seed=obs)
+    cache_v = _randn(B, H, W, Dh, dtype=torch.bfloat16, seed=obs + 1)
+    q = _randn(B, obs, 3, H, Dh, dtype=torch.bfloat16, seed=obs + 2)[:, :, 0].transpose(1, 2)
+    _check_fwd_against_plain(q, cache_k[:, :, :obs], cache_v[:, :, :obs], None, "tc")
+    q1 = _randn(B, H, 1, Dh, dtype=torch.bfloat16, seed=obs + 3)
+    for index in range(obs, W):
+        out = tda.decode_attention(q1, cache_k, cache_v, index, None, Dh**-0.5)
+        ref = tda._plain_decode_attention(q1, cache_k, cache_v, index, None, Dh**-0.5)
+        torch.cuda.synchronize()
+        assert excess(out, ref, torch.bfloat16).max().item() <= TOL[torch.bfloat16][0]
+    for T in (W, obs):
+        _check_bwd_against_plain(B, H, T, T, Dh, torch.bfloat16, False, seed=T, tc=True)
