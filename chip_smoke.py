@@ -35,7 +35,13 @@ Phases, each of which exits non-zero on failure:
    paths' (bf16): K1 on each turn's observation prefill (Tq = S = 20, 96,
    72 on views of 31-, 104- and 80-slot caches; B=512 and 256) and K4 at
    every action slot, and K1-K3 on their train windows (T = 104, 31, 80;
-   B=64 and 512) with K1 alone on the next-window forward;
+   B=64 and 512) with K1 alone on the next-window forward; and the dialog
+   paths' (`_check_dialog_shapes`): the gates' f32 decoder oracle (d128 H4,
+   Dh 32: 256 + 8 slots, B=100 and 16), LM buyer (d192 H4, Dh 48: 768 + 64,
+   B=1) and policies (d256 H4: 768 + 48, B=16 and the reranker's 128), 3d's
+   bf16 asker and decoder oracle (B=64), K1-K3 on the f32 train windows
+   (256, 512, 768, 448; B=16) and K1 on the score calls (B=128, 768 and
+   448), and the tensor-core variants at Dh 32 and 48 in bf16;
 3. serving at full width: value-guided Wordle serving with GPT-2-small
    (vocab 50,257 padded to 50,304), bf16 weights from a seed, two trunks,
    twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and five
@@ -66,7 +72,7 @@ Phases, each of which exits non-zero on failure:
    torch.profiler;
 3g. the port's Wordle ILQL gate (`lmrl_gym_torch/scripts/
    wordle_ilql_gate.py`) at its own width (d256, L4, H4, byte vocab 259
-   padded to 320) and a cut budget (100 BC, 100 %BC, 100 ILQL steps, eval
+   padded to 320) and a cut budget (50 BC, 50 %BC, 50 ILQL steps, eval
    batch 512, no OptimalPolicy bound): every stage runs, its launch counts
    are the budget's, and every return is finite and in [-6, 0];
 3s. legal-set and text-env serving on the phase-3 weights: a
@@ -117,7 +123,8 @@ Phases, each of which exits non-zero on failure:
    all checkpoints in a temporary directory, deleted afterwards;
 3w. the port's two PPO gates (`lmrl_gym_torch/scripts/{text_nav,maze}_
    ppo_gate.py`) at their own width (d256 L4 H4) and a cut budget (two
-   rounds, the first a value warm-up): launch counts exactly the budget's
+   rounds, the first a value warm-up; maze episodes of at most 20
+   moves): launch counts exactly the budget's
    (per `LMServer` call, BC and PPO step, PPO forward call) and every
    return inside its env's range;
 3k. the Markov actors at `bench.py::bench_actor_markov`'s point:
@@ -139,6 +146,27 @@ Phases, each of which exits non-zero on failure:
 3h. the port's chess gate (`lmrl_gym_torch/scripts/chess_ilql_gate.py`)
    at its own width (d256 L4 H4, grid observations) and a cut budget:
    launch counts exactly the budget's and every rate in [0, 1];
+3d. the LM-oracle dialog stack at full width, the reference's own 20Q
+   configuration: a GPT-2-small asker (bf16, over the 20Q task BPE, 822
+   ids padded to 896; sampled through `GenerationPolicy` over `LMServer`,
+   prompts to 768 tokens, 48 new) against a flan-t5-xl-width T5 oracle
+   (d2048, 24 + 24 layers, 32 heads, gated-gelu, untied; bf16 weights from
+   a seed; `Seq2SeqServer`, 256-token right-padded encoder inputs, 8 new
+   tokens, greedy) in `BatchedTwentyQuestionsEnv`, B=64, 4 env turns; then
+   the same turns against a GPT-2-small decoder oracle (`LMServer`); per
+   turn exact launches (asker 12 K1 and 576 K4; decoder oracle 12 and 96;
+   the T5 none), every answer 'Yes.' or 'No.', every live history one
+   question and one answer longer; the median turn split between asker and
+   oracle; a profiled T5 turn by device category, the T5's attention cores
+   and f32 lm_head timed on their own; and the T5 at 2 + 2 layers, bf16 on
+   the card against f32 on the CPU (relative RMS error within twice the
+   CPU's own bf16 error on the same weights and inputs);
+3e. the port's three dialog gates (`lmrl_gym_torch/scripts/{car_dealer_
+   ilql,dialog_ilql,twenty_questions}_gate.py`) at their own widths (f32)
+   and a cut budget (a few dozen episodes, one epoch per stage, episodes
+   of at most 6 turns, 64 balanced oracle QA windows): launch counts exactly the budget's (counted from the
+   serving calls, score calls and train steps each gate makes), finite
+   losses, rewards in the env's range and fidelities in [0, 1];
 4. the same full-width serving weights at B=4 on the card (kernels, bf16)
    against the CPU (plain path, f32): header prefill plus 3 decode steps;
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
@@ -158,7 +186,8 @@ Phases, each of which exits non-zero on failure:
    call and step (with BC), an offline and an online loop step, the cut
    PPO gates; and slice 8's: a Markov rollout on the maze and on chess,
    the guided chess rollout (3u's), an online Markov round and step, the cut
-   chess gate). Every kernel with two
+   chess gate; and slice 9's: a 3d asker turn and decoder-oracle turn, the
+   three cut dialog gates). Every kernel with two
    variants carries the `variant` its main path runs and its `tc_launches`; and beside SDPA's backward
    (`library_ms`, which computes its own rowsum(dO ⊙ O)) the port's Δ pass
    (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`).
@@ -216,6 +245,7 @@ from lmrl_gym_torch.algos.value_policy import (
 from lmrl_gym_torch.cli.tasks import build_maze_env, generate_maze_chains
 from lmrl_gym_torch.core.blocking import BlockingStrategy, Padding, Truncation
 from lmrl_gym_torch.core.optimizer import TrainState, adamw, value_and_grads
+from lmrl_gym_torch.envs import lm_oracle
 from lmrl_gym_torch.envs.base import text_env_eval
 from lmrl_gym_torch.envs.chess import engine as chess_engine
 from lmrl_gym_torch.envs.chess.vector import ChessEndgameVectorEnv
@@ -225,6 +255,7 @@ from lmrl_gym_torch.envs.maze.vector import MazeTokenVecEnv, MazeVectorEnv
 from lmrl_gym_torch.envs.wordle.env import ReformatWordleEnv, WordleEnv
 from lmrl_gym_torch.envs.wordle.vector import N_TRIES, WordleVectorEnv, WordleVocab
 from lmrl_gym_torch.loops import actor, online_device
+from lmrl_gym_torch.loops import checkpoints as loop_checkpoints
 from lmrl_gym_torch.loops.checkpoints import LoopState, dump_modules, restore_module
 from lmrl_gym_torch.loops.offline import OfflineLoopConfig, offline_train_loop
 from lmrl_gym_torch.loops.online import OnlineLoopConfig, online_train_loop
@@ -235,7 +266,9 @@ from lmrl_gym_torch.loops.online_device import (
     online_ilql_wordle,
     wordle_rollout_to_ilql_batch,
 )
+from lmrl_gym_torch.envs.lm_oracle import build_lm_twenty_questions_env
 from lmrl_gym_torch.models.config import gpt2_small
+from lmrl_gym_torch.models.encdec import EncDecCore, EncoderDecoder, T5Attention, flan_t5_xl
 from lmrl_gym_torch.models.generation import SamplingConfig
 from lmrl_gym_torch.models.heads import LinearHead, LinearHeadConfig, MLPHead, MLPHeadConfig
 from lmrl_gym_torch.models.interface import LMCore
@@ -256,10 +289,13 @@ from lmrl_gym_torch.ops.flash_attention import (
     flash_fwd,
 )
 from lmrl_gym_torch.scripts import (
+    car_dealer_ilql_gate,
     chess_ilql_gate,
+    dialog_ilql_gate,
     maze_ilql_gate,
     maze_ppo_gate,
     text_nav_ppo_gate,
+    twenty_questions_gate,
     wordle_ilql_gate,
 )
 from lmrl_gym_torch.text.frames import (
@@ -269,6 +305,7 @@ from lmrl_gym_torch.text.frames import (
     TokenTrajectoryChain,
     text_history_to_str,
 )
+from lmrl_gym_torch.text.bpe import train_bpe_for_task
 from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -768,6 +805,7 @@ def phase_path_checks() -> dict:
             log(f"check flash_fwd B=100 H={h} Tq=S={MAZE_LEN} right-padded (score call) {str(dtype)[6:]}: "
                 f"max_abs_err={err:.3e} (atol, rtol {TOL[dtype]}) lse_err={lse_err:.3e}")
     _check_markov_shapes(gen, errs)
+    _check_dialog_shapes(gen, errs)
     return errs
 
 
@@ -1232,8 +1270,9 @@ def phase_online(config) -> dict:
     return out
 
 
-GATE_ARGS = ["--bc-steps", "100", "--pbc-steps", "100", "--ilql-steps", "100", "--eval-every", "100",
-             "--eval-batch", "512", "--optimal-episodes", "0"]
+GATE_STEPS = 50  # 3g: updates per stage (BC, %BC, ILQL), one eval at the end
+GATE_ARGS = ["--bc-steps", str(GATE_STEPS), "--pbc-steps", str(GATE_STEPS), "--ilql-steps", str(GATE_STEPS),
+             "--eval-every", str(GATE_STEPS), "--eval-batch", "512", "--optimal-episodes", "0"]
 GATE_LAYERS = 4  # the gate's default --layers
 GATE_LM_EVALS, GATE_GUIDED_EVALS = 4, 3  # BC and %BC, sampled and greedy; ILQL live, target and greedy
 
@@ -1241,7 +1280,7 @@ GATE_LM_EVALS, GATE_GUIDED_EVALS = 4, 3  # BC and %BC, sampled and greedy; ILQL 
 def phase_gate() -> dict:
     """Phase 3g: the port's Wordle ILQL gate at its own width and a cut budget."""
     L = GATE_LAYERS
-    n_bc, n_ilql = 200, 100
+    n_bc, n_ilql = 2 * GATE_STEPS, GATE_STEPS
     fwd = n_bc * L + n_ilql * 2 * L + GATE_LM_EVALS * 7 * L + GATE_GUIDED_EVALS * 2 * 7 * L
     dec = GATE_LM_EVALS * 60 * L + GATE_GUIDED_EVALS * 2 * 60 * L
     bwd = (n_bc + n_ilql) * L
@@ -1839,6 +1878,7 @@ TN_GATE_ARGS = ["--n-episodes", "16", "--bc-epochs", "1", "--rounds", "2", "--va
                 "--rollouts-per-round", "16", "--eval-rollouts", "16", "--max-steps", "8"]
 MAZE_PPO_GATE_ARGS = ["--n-chains", "20", "--bc-epochs", "1", "--rounds", "2", "--value-warmup-rounds", "1",
                       "--rollouts-per-round", "16", "--eval-rollouts", "16"]
+MAZE_PPO_GATE_MOVES = 20  # 3w's maze episodes cut to 20 moves (the gate's env allows 100)
 
 
 def _text_nav_gate(extra=(), device="cuda"):
@@ -1942,6 +1982,21 @@ def _dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
 
 
+def _timed_calls(module, name: str, seconds: list):
+    """Wrap module.name to append each call's wall seconds to `seconds`;
+    returns the function that restores it."""
+    fn = getattr(module, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, timed)
+    return lambda: setattr(module, name, fn)
+
+
 def phase_loops(config, device="cuda", maze_config=None) -> dict:
     """Phase 3l: the generic loops at full width. Offline: `offline_train_loop`
     drives the ILQL step at phase 3t's point (GPT-2-small, vocab 50,304,
@@ -1950,7 +2005,8 @@ def phase_loops(config, device="cuda", maze_config=None) -> dict:
     fresh state restored from the first epoch's checkpoint resumes the loop
     (which restarts that epoch, as the JAX loop does), and its first step's
     loss must equal the uninterrupted run's second within RESUME_RTOL (the
-    same 32 windows, in another order). Online: `online_train_loop` runs two
+    same 32 windows, in another order); the loop's first checkpoint write is
+    timed, and the same modules' params written alone. Online: `online_train_loop` runs two
     maze PPO rounds (phase 3p's width) with a round checkpoint. Checkpoints
     go to a temporary directory, deleted afterwards."""
     L = config.num_layers
@@ -1971,6 +2027,7 @@ def phase_loops(config, device="cuda", maze_config=None) -> dict:
         return init_ilql_state(*_train_modules(config, device, seed=7), adamw(1e-4), adamw(1e-3), ilql_config)
 
     out = {}
+    writes: list = []  # seconds of each checkpoint write of the uninterrupted loop
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         runs = {}
@@ -2001,12 +2058,14 @@ def phase_loops(config, device="cuda", maze_config=None) -> dict:
                     f"{loop_state.epoch}")
                 out.update(ckpt_read_s=t_read, ckpt_bytes=n_bytes)
             t0 = time.perf_counter()
+            timed_dump = _timed_calls(loop_checkpoints, "dump_modules", writes)
             state, ls = offline_train_loop(
                 state, step_fn, ArrayDataset(dict(arrays)),
                 OfflineLoopConfig(epochs=LOOP_STEPS, train_bsize=TRAIN_B, log_every=None, eval_every_epochs=None,
                                   save_every_epochs=1 if name == "uninterrupted" else None, save_at_end=False,
                                   save_dir=save_dir, save_train_state=True),
                 batch_prep=batch_prep, module_getter=modules, loop_state=loop_state)
+            timed_dump()
             _sync(device)
             runs[name] = dict(losses=losses, s=time.perf_counter() - t0, ls=(ls.step, ls.epoch))
             for i, c in enumerate(step_counts):
@@ -2023,12 +2082,9 @@ def phase_loops(config, device="cuda", maze_config=None) -> dict:
             f"per step {_fmt_counts(step_counts[0])}")
         check(rel <= RESUME_RTOL, f"offline loop resume: first step's loss {re['losses'][0]} vs {un['losses'][1]}")
         check(re["ls"] == (LOOP_STEPS + 1, LOOP_STEPS), f"resumed loop state {re['ls']}")
-        # one timed write of the same checkpoint
+        # the loop's first checkpoint write, timed; then the same modules' params alone
+        t_write, n_bytes = writes[0], _dir_bytes(os.path.join(ckpt_dir, "epoch_0"))
         state = fresh_state()
-        t0 = time.perf_counter()
-        dump_modules(os.path.join(root, "timed"), modules(state), save_train_state=True)
-        t_write = time.perf_counter() - t0
-        n_bytes = _dir_bytes(os.path.join(root, "timed"))
         t0 = time.perf_counter()
         dump_modules(os.path.join(root, "timed_params"), modules(state), save_train_state=False)
         t_params = time.perf_counter() - t0
@@ -2145,12 +2201,14 @@ def phase_ppo_gates(device="cuda", extra=()) -> dict:
     exactly the budget's — per LMServer call L K1 and L·new K4, per BC and
     PPO step L each of K1/K2/K3, per PPO forward call 2L K1 — and every
     return inside its env's range (Text-Nav: a win rate in [0, 1]; the maze:
-    −1 per move, at most 100 moves)."""
+    −1 per move, episodes cut to MAZE_PPO_GATE_MOVES moves)."""
     out = {}
     for name, module, argv, lo in (("text_nav", text_nav_ppo_gate, TN_GATE_ARGS, 0.0),
                                    ("maze", maze_ppo_gate, MAZE_PPO_GATE_ARGS, -401.0)):
         args = module.parse_args(argv + list(extra) + ["--device", device])
         g = module.Gate(args)
+        if name == "maze":
+            g._env = build_maze_env(max_steps=MAZE_PPO_GATE_MOVES)  # the env `eval_env` serves
         L, bs = args.layers, args.bsize
         n_windows_bc = sum(len(c.to_list()) for c in g.bc_token_chains())
         result, counts, s, n_calls, windows = _gate_counts(g, module.run)
@@ -2373,6 +2431,464 @@ def phase_chess_gate(device="cuda", extra=()) -> dict:
     return out
 
 
+# ---------------- slice 9: the LM-oracle dialog stack ----------------
+
+DIALOG_B, DIALOG_TURNS = 64, 4  # 3d: episodes, env turns per oracle
+DIALOG_MAX_LEN, DIALOG_NEW = 768, 48  # the dialog gates' policy prompts and new tokens
+ORACLE_INPUT, ORACLE_NEW = 256, 8  # lm_oracle.build_lm_twenty_questions_env's oracle calls
+T5_CHECK_LAYERS = 2  # 3d's card-vs-CPU T5 check: flan-t5-xl widths, 2 + 2 layers
+# card (bf16) vs CPU (f32) T5 outputs, as the RMS of the difference over
+# the RMS of the CPU output. Both devices round to bf16 (8 significant
+# bits) at the same points, but with random weights T5's unscaled scores
+# have a std of about sqrt(d_kv) = 8, so the softmax is near one-hot and
+# amplifies the rounding by an amount no per-op count predicts (the first
+# run's logits: 3.9% against a 3% bound derived from 2^-9 per rounding).
+# So the yardstick is measured in the same run, on the same weights and
+# inputs: the same bf16 arithmetic on the CPU against its f32; the card
+# must come within T5_RMS_FACTOR times that
+T5_RMS_FACTOR = 2.0
+# (name, dtype, batch, heads, Dh, prompt, new tokens): the dialog paths'
+# K1 prefill (left-padded, a view of prompt + new cache slots) and K4 at
+# the first, a middle and the last new slot. The gates' decoder oracle
+# (d128 H4: 256 + 8; the fidelity probe's B=100 and an env turn's 16), the
+# Car-Dealer LM buyer (d192 H4: 768 + 64, B=1), the gates' policies (d256
+# H4: 768 + 48; greedy B=16, the reranker's 16 x 8 = 128 proposals), all
+# f32 as the gates run; 3d's asker (GPT-2-small, B=64, 768 + 48) and its
+# decoder oracle (256 + 8), bf16; and the tensor-core variants at Dh 32
+# and 48 in bf16
+DIALOG_SERVE_SHAPES = (
+    ("oracle", torch.float32, 100, 4, 32, ORACLE_INPUT, ORACLE_NEW),
+    ("oracle", torch.float32, 16, 4, 32, ORACLE_INPUT, ORACLE_NEW),
+    ("buyer", torch.float32, 1, 4, 48, 768, 64),
+    ("policy", torch.float32, 16, 4, 64, DIALOG_MAX_LEN, DIALOG_NEW),
+    ("policy rerank", torch.float32, 128, 4, 64, DIALOG_MAX_LEN, DIALOG_NEW),
+    ("3d asker", torch.bfloat16, DIALOG_B, H, DH, DIALOG_MAX_LEN, DIALOG_NEW),
+    ("3d decoder oracle", torch.bfloat16, DIALOG_B, H, DH, ORACLE_INPUT, ORACLE_NEW),
+    ("Dh 32 (tensor cores)", torch.bfloat16, 16, 4, 32, ORACLE_INPUT, ORACLE_NEW),
+    ("Dh 48 (tensor cores)", torch.bfloat16, 4, 4, 48, 768, 64),
+)
+# (name, dtype, batch, heads, Dh, T, backward too): the train windows — the
+# oracle's BC (256), the buyer's (512), the 20Q policies' BC / ILQL (768)
+# and the Car-Dealer's BC / ILQL / MC (448), B=16, right-padded, f32; the
+# score calls (B = 16 x 8 = 128 proposals, 768 and 448), forward only; the
+# tensor-core backward at Dh 32 and 48 in bf16
+DIALOG_TRAIN_SHAPES = (
+    ("oracle BC", torch.float32, 16, 4, 32, 256, True),
+    ("buyer BC", torch.float32, 16, 4, 48, 512, True),
+    ("20Q policy", torch.float32, 16, 4, 64, 768, True),
+    ("Car-Dealer policy", torch.float32, 16, 4, 64, 448, True),
+    ("20Q score call", torch.float32, 128, 4, 64, 768, False),
+    ("Car-Dealer score call", torch.float32, 128, 4, 64, 448, False),
+    ("Dh 32 (tensor cores)", torch.bfloat16, 16, 4, 32, 256, True),
+    ("Dh 48 (tensor cores)", torch.bfloat16, 16, 4, 48, 512, True),
+)
+DIALOG_GATE_ARGS = {  # 3e: the port's dialog gates at a cut budget (their own widths)
+    "car_dealer": ["--behavior-episodes", "32", "--bc-epochs", "1", "--ilql-epochs", "1", "--mc-epochs", "1",
+                   "--eval-rollouts", "2", "--eval-bsize", "2", "--buyer-episodes", "32", "--buyer-epochs", "1"],
+    "dialog_ilql": ["--behavior-episodes", "16", "--bc-epochs", "1", "--ilql-epochs", "1", "--eval-rollouts", "2",
+                    "--eval-bsize", "2", "--oracle-episodes", "8", "--oracle-epochs", "1"],
+    "twenty_questions": ["--behavior-episodes", "16", "--p-good", "-1", "--bc-epochs", "1", "--eval-rollouts", "2",
+                         "--eval-bsize", "2", "--oracle-episodes", "8", "--oracle-epochs", "1"],
+}
+
+
+def _dialog_cache(b, h, dh, t_max, prompt, dtype, gen):
+    """q (a view into a fused [b, prompt, 3, h, dh] projection), a
+    [b, h, t_max, dh] K/V cache and a [b, t_max] left-pad bias (each row's
+    padding shorter than the prompt)."""
+    q = torch.randn(b, prompt, 3, h, dh, device="cuda", generator=gen).to(dtype)[:, :, 0].transpose(1, 2)
+    k = torch.randn(b, h, t_max, dh, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, h, t_max, dh, device="cuda", generator=gen).to(dtype)
+    n_pad = torch.randint(0, prompt, (b,), device="cuda", generator=gen)
+    bias = torch.where(torch.arange(t_max, device="cuda")[None, :] >= n_pad[:, None], 0.0, _NEG_BIG).float()
+    return q, k, v, bias
+
+
+def _check_dialog_shapes(gen, errs: dict) -> None:
+    """K1-K4 against their plain versions at the dialog paths' shapes
+    (DIALOG_SERVE_SHAPES, DIALOG_TRAIN_SHAPES), in the dtypes the paths run:
+    the gates' f32 (CUDA-core K1-K3) at Dh 32, 48 and 64, caches of 264,
+    816 and 832 slots, 768-token prefills and train windows; 3d's bf16."""
+    for name, dtype, b, h, dh, prompt, new in DIALOG_SERVE_SHAPES:
+        W = prompt + new
+        q, k, v, bias = _dialog_cache(b, h, dh, W, prompt, dtype, gen)
+        err, lse_err = _check_fwd(q, k[:, :, :prompt], v[:, :, :prompt], bias[:, :prompt], bias[:, :prompt] == 0,
+                                  dtype, f"dialog {name} B={b} H={h} Dh={dh} prefill {prompt}")
+        errs["flash_fwd"] = max(errs["flash_fwd"], err)
+        dec_err = 0.0
+        for index in (prompt, prompt + new // 2, W - 1):
+            q1 = torch.randn(b, h, 1, dh, device="cuda", generator=gen).to(dtype)
+            dec_err = max(dec_err, _check_decode(q1, k, v, index, bias, dtype, f"dialog {name} B={b} Dh={dh} "
+                                                                               f"T_max={W} index={index}"))
+        errs["decode_attn"] = max(errs["decode_attn"], dec_err)
+        log(f"check dialog {name} B={b} H={h} Dh={dh} {str(dtype)[6:]}: flash_fwd prefill {prompt} (view of a {W} "
+            f"cache, left-padded) max_abs_err={err:.3e} lse_err={lse_err:.3e}; decode_attn index {prompt}, "
+            f"{prompt + new // 2}, {W - 1} max_abs_err={dec_err:.3e}")
+    for name, dtype, b, h, dh, T, backward in DIALOG_TRAIN_SHAPES:
+        args, rows, _ = _bwd_inputs(T, T, dtype, "right", gen, b, h, dh)
+        fwd_err, _ = _check_fwd(*args[:4], rows, dtype, f"dialog {name} B={b} Dh={dh} T={T}")
+        errs["flash_fwd"] = max(errs["flash_fwd"], fwd_err)
+        line = [f"flash_fwd_max_abs_err={fwd_err:.3e}"]
+        if backward:
+            scale = 1.0 / dh**0.5
+            tc0 = (flash_bwd_dq.tc_launches, flash_bwd_dkv.tc_launches)
+            got = (flash_bwd_dq(*args, True, scale), *flash_bwd_dkv(*args, True, scale))
+            n_tc = (flash_bwd_dq.tc_launches - tc0[0], flash_bwd_dkv.tc_launches - tc0[1])
+            want_tc = int(_variant(dtype, dh) == "tc")
+            check(n_tc == (want_tc, want_tc), f"flash_bwd dialog {name}: tensor-core launches {n_tc}, want {want_tc}")
+            ref = (_plain_bwd_dq(*args, True, scale), *_plain_bwd_dkv(*args, True, scale))
+            torch.cuda.synchronize()
+            for g_name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                err = (a.float() - r.float()).abs().max().item()
+                over = ((a.float() - r.float()).abs() - GRAD_TOL[dtype][1] * r.float().abs()).max().item()
+                check(over <= GRAD_TOL[dtype][0], f"flash_bwd {g_name} dialog {name} B={b} Dh={dh} T={T}: max abs "
+                                                  f"err {err} over tolerance {GRAD_TOL[dtype]}")
+                kernel = "flash_bwd_dq" if g_name == "dq" else "flash_bwd_dkv"
+                errs[kernel] = max(errs.get(kernel, 0.0), err)
+                line.append(f"{g_name}_max_abs_err={err:.3e}")
+        log(f"check dialog {name} B={b} H={h} Dh={dh} T={T} right-padded {str(dtype)[6:]}: " + " ".join(line)
+            + f" (atol, rtol {TOL[dtype]} / {GRAD_TOL[dtype]})")
+
+
+def dialog_tokenizer():
+    """The 20Q task BPE of the dialog gates (vocab target 2048)."""
+    return train_bpe_for_task("twenty_questions", vocab_size=2048, n_episodes=200, seed=0)
+
+
+DIALOG_GATE_TURNS = 6  # 3e: 20Q episodes and Car-Dealer LM-buyer episodes cut to 6 turns
+DIALOG_GATE_BALANCED_QA = 64  # 3e: the balanced oracle QA (~1,260 windows) cut to its first 64
+
+
+@contextlib.contextmanager
+def _cut_dialog_budget():
+    """3e's cuts, by patching what the gates call: the 20Q envs (scripted
+    and LM oracle) end after DIALOG_GATE_TURNS questions and the LM-buyer
+    Car-Dealer env after DIALOG_GATE_TURNS turns (the gates' envs allow 20
+    and 50), and the balanced QA the 20Q oracles train on keeps its first
+    DIALOG_GATE_BALANCED_QA windows."""
+    from lmrl_gym_torch.cli import tasks
+
+    turns = lambda build: lambda *a, **kw: build(*a, **{**kw, "max_conversation_length": DIALOG_GATE_TURNS})  # noqa: E731
+    patches = [(tasks, "build_twenty_questions_env", turns), (lm_oracle, "build_lm_twenty_questions_env", turns),
+               (lm_oracle, "build_lm_car_dealer_env", turns),
+               (lm_oracle, "collect_twenty_questions_qa_balanced",
+                lambda collect: lambda *a, **kw: collect(*a, **kw)[:DIALOG_GATE_BALANCED_QA])]
+    saved = [getattr(obj, name) for obj, name, _ in patches]
+    for obj, name, cut in patches:
+        setattr(obj, name, cut(getattr(obj, name)))
+    try:
+        yield
+    finally:
+        for (obj, name, _), fn in zip(patches, saved):
+            setattr(obj, name, fn)
+
+
+def _want_f32(L: int, fwd: int = 0, dec: int = 0, bwd: int = 0) -> tuple:
+    """`_want` for f32 launches (the CUDA-core K1-K3: no tensor-core share)."""
+    return (fwd * L, 0, dec * L, bwd * L, 0, bwd * L, 0)
+
+
+def _t5_card_vs_cpu(config, device) -> dict:
+    """The T5 at `config`'s widths with T5_CHECK_LAYERS + T5_CHECK_LAYERS
+    layers, weights from one seed: bf16 on the card and bf16 on the CPU,
+    each against f32 on the CPU, on the encoder output and the first
+    decode step's logits (real vocab), in relative RMS; the card within
+    T5_RMS_FACTOR times the CPU's bf16 error."""
+    cfg = config.replace(num_layers=T5_CHECK_LAYERS, num_decoder_layers=T5_CHECK_LAYERS, dtype="float32")
+    bf16_cfg = cfg.replace(dtype="bfloat16")
+    ref = EncoderDecoder(cfg, device="cpu", seed=3)
+    gen = torch.Generator().manual_seed(4)
+    ids = torch.randint(1, cfg.vocab_size, (2, 32), generator=gen)
+    mask = (torch.arange(32)[None, :] < torch.tensor([32, 9])[:, None]).to(torch.int32)
+    ids = ids * mask  # right-padded with pad_token_id 0
+    B = ids.shape[0]
+
+    def run(dev, c, dtype):
+        model = ref if c is cfg else EncoderDecoder(c, device=dev, dtype=dtype, seed=3)
+        if model is not ref:
+            model.load_state_dict(ref.state_dict())
+        fn, cache = EncDecCore(c, device=dev).make_seq2seq_logits_fn(model, ids.to(dev), mask.to(dev), 2)
+        with torch.no_grad():
+            enc = model.encode(ids.to(dev), mask.to(dev))
+            logits, _ = fn(torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                           torch.ones((B, 1), dtype=torch.int32, device=dev), cache)
+        return enc.float().cpu()[mask.bool()], logits[:, 0, :cfg.vocab_size].float().cpu()
+
+    want = run("cpu", cfg, torch.float32)
+    cpu_bf16, card = run("cpu", bf16_cfg, torch.bfloat16), run(device, bf16_cfg, torch.bfloat16)
+    rel = lambda a, r: ((a - r).pow(2).mean().sqrt() / r.pow(2).mean().sqrt()).item()  # noqa: E731
+    res = {}
+    for i, name in enumerate(("encoder", "logits")):
+        err, yard = rel(card[i], want[i]), rel(cpu_bf16[i], want[i])
+        res[name], res[f"{name}_cpu_bf16"] = err, yard
+        check(math.isfinite(err) and err <= T5_RMS_FACTOR * yard,
+              f"T5 card vs CPU {name}: relative RMS error {err} over {T5_RMS_FACTOR} x the CPU's bf16 error {yard}")
+    return res
+
+
+def _t5_breakdown(run) -> dict:
+    """CUDA-event times of the T5's plain attention cores (scores, bias,
+    mask, softmax, PV: `T5Attention._attend`) and of its f32 `lm_head`
+    (`EncoderDecoder._logits`) inside `run`, in ms, with run's wall ms."""
+    events = {"t5 attention core": [], "t5 f32 lm_head": []}
+    saved = (T5Attention._attend, EncoderDecoder._logits)
+
+    def timed(label, fn):
+        def wrapper(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            events[label].append((s, e))
+            return out
+        return wrapper
+
+    T5Attention._attend = timed("t5 attention core", saved[0])
+    EncoderDecoder._logits = timed("t5 f32 lm_head", saved[1])
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        T5Attention._attend, EncoderDecoder._logits = saved
+    out = {label: sum(s.elapsed_time(e) for s, e in ev) for label, ev in events.items()}
+    out["wall_ms"] = wall
+    out["calls"] = {label: len(ev) for label, ev in events.items()}
+    return out
+
+
+def phase_dialog(device="cuda", asker_config=None, t5_config=None, decoder_oracle_config=None) -> dict:
+    """Phase 3d: the dialog stack at full width — the reference's own 20Q
+    configuration, a GPT-2 asker against a flan-t5-xl oracle, then the same
+    turns against the gates' decoder-oracle architecture at GPT-2-small
+    width — in `BatchedTwentyQuestionsEnv`, DIALOG_B = 64 episodes,
+    DIALOG_TURNS = 4 env turns per oracle. The asker: GPT-2-small (d768 L12
+    H12) over the 20Q task BPE, bf16 weights from a seed, sampled through
+    `GenerationPolicy` over `LMServer` (prompts to 768 tokens, 48 new). The
+    T5: flan_t5_xl()'s widths (d2048, d_kv 64, d_ff 5120, 24 + 24 layers, 32
+    heads, gated-gelu, untied; vocab the task BPE's, as train_t5_oracle_lm
+    sets it), bf16 weights from a seed, served by `Seq2SeqServer` (256-token
+    right-padded encoder inputs, 8 new tokens, greedy). Per turn: the
+    asker's launches (L K1 + 48·L K4), the oracle's (T5: none; decoder:
+    L K1 + 8·L K4), every answer 'Yes.' or 'No.', every live history one
+    question and one answer longer; the median turn wall time split between
+    asker and oracle; one more T5 turn profiled by device category, with
+    the T5's attention cores and f32 lm_head timed on their own; and the T5 at
+    2 + 2 layers, card against CPU (T5_RMS_FACTOR)."""
+    tok = dialog_tokenizer()
+    on_card = torch.device(device).type == "cuda"
+    dtype = torch.bfloat16 if on_card else torch.float32
+    asker_config = asker_config or gpt2_small().replace(vocab_size=tok.vocab_size, pad_vocab_to_multiple=128,
+                                                        embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0)
+    t5_config = t5_config or flan_t5_xl().replace(vocab_size=tok.vocab_size, dropout_rate=0.0)
+    decoder_oracle_config = decoder_oracle_config or asker_config
+    t0 = time.perf_counter()
+    asker = init_params(asker_config, seed=0, device=device, dtype=dtype)
+    asker_server = LMServer(LMCore(asker_config, device=device), tok)
+    sampling = SamplingConfig(max_new_tokens=DIALOG_NEW, greedy=False, temperature=1.0,
+                              eos_token_id=tok.newline_token_id, pad_token_id=tok.pad_token_id)
+    policy = GenerationPolicy(
+        generate_batch=lambda prompts, g: asker_server.generate_from_strs(asker, prompts, DIALOG_MAX_LEN, sampling, g),
+        generator=torch.Generator(device=device).manual_seed(5))
+    t5 = EncoderDecoder(t5_config.replace(dtype="bfloat16" if on_card else "float32"), device=device, dtype=dtype,
+                        seed=1)
+    n_t5 = sum(p.numel() for p in t5.parameters())
+    oracles = {
+        "t5": (EncDecCore(t5.config, device=device), t5, 0),
+        "decoder": (LMCore(decoder_oracle_config, device=device),
+                    init_params(decoder_oracle_config, seed=2, device=device, dtype=dtype),
+                    decoder_oracle_config.num_layers),
+    }
+    _sync(device)
+    log(f"dialog setup (3d): BPE vocab {tok.vocab_size}; asker d{asker_config.hidden_size} L{asker_config.num_layers}; "
+        f"T5 d{t5_config.d_model} L{t5_config.num_layers}+{t5_config.n_dec_layers} H{t5_config.num_heads} "
+        f"{n_t5 / 1e9:.3f}B parameters ({n_t5 * torch.finfo(dtype).bits / 8e9:.2f} GB); "
+        f"{time.perf_counter() - t0:.2f} s")
+    La = asker_config.num_layers
+    want_asker = _want(La, fwd=1, dec=DIALOG_NEW) if on_card else _want_f32(La, fwd=1, dec=DIALOG_NEW)
+    out = {}
+    answers = {"Yes.\n", "No.\n"}
+    for name, (core, params, Lo) in oracles.items():
+        env = build_lm_twenty_questions_env(core, tok, params, batched=True)
+        histories = env.reset(list(range(DIALOG_B)))
+        done = [False] * DIALOG_B
+        t_ask, t_ora = [], []
+        for turn in range(DIALOG_TURNS):
+            acted, c_ask, s_ask = _counted(policy.act, histories, done, device=device)
+            check(c_ask == want_asker, f"dialog {name} turn {turn} asker: {_fmt_counts(c_ask)}, want {want_asker}")
+            results, c_ora, s_ora = _counted(env.step, acted, done, device=device)
+            want_ora = (_want(Lo, fwd=1, dec=ORACLE_NEW) if on_card else _want_f32(Lo, fwd=1, dec=ORACLE_NEW))
+            check(c_ora == want_ora, f"dialog {name} turn {turn} oracle: {_fmt_counts(c_ora)}, want {want_ora}")
+            n_live = 0
+            for i, (h, a, r) in enumerate(zip(histories, acted, results)):
+                if done[i]:
+                    check(a is None and r is None, f"dialog {name} turn {turn}: done slot {i} came back")
+                    continue
+                n_live += 1
+                new_h, reward, d = r
+                check(len(a) == len(h) + 1 and a[:-1] == h and a[-1].is_action, f"dialog {name}: slot {i} question")
+                check(len(new_h) == len(h) + 2 and new_h[:-1] == a and new_h[-1].text in answers
+                      and not new_h[-1].is_action, f"dialog {name}: slot {i} answer {new_h[-1].text!r}")
+                check(reward in (-1.0, 0.0), f"dialog {name}: slot {i} reward {reward}")
+                histories[i], done[i] = new_h, d
+            t_ask.append(s_ask)
+            t_ora.append(s_ora)
+            n_yes = sum(h[-1].text == "Yes.\n" for h in histories)
+            log(f"dialog (3d) {name} oracle turn {turn}: {n_live} live episodes; asker {s_ask:.3f} s "
+                f"({_fmt_counts(c_ask)}), oracle {s_ora:.3f} s ({_fmt_counts(c_ora)}); {n_yes} 'Yes.' answers")
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        log(f"dialog (3d) {name} oracle: median turn {med([a + b for a, b in zip(t_ask, t_ora)]):.3f} s (asker "
+            f"{med(t_ask):.3f} s, oracle {med(t_ora):.3f} s) over {DIALOG_TURNS} turns at B={DIALOG_B}; longest prompt "
+            f"{max(len(tok.encode(text_history_to_str(h))) for h in histories)} tokens")
+        out.update(_path_counts("dialog_asker_turn", c_ask))
+        if name == "decoder":
+            out.update(_path_counts("dialog_oracle_turn", c_ora))
+        out[f"dialog_{name}_turn_s"] = med([a + b for a, b in zip(t_ask, t_ora)])
+        if on_card and name == "t5":  # one profiled turn: the reference's configuration
+            live = [i for i, d in enumerate(done) if not d]
+
+            def turn():
+                acted = policy.act(histories, done)
+                env.step(acted, done)
+
+            profile_run(f"dialog turn, {name} oracle (asker + oracle)", turn, med(t_ask) + med(t_ora))
+            acted = policy.act(histories, done)
+            br = _t5_breakdown(lambda: env.step(acted, done))
+            log(f"dialog (3d) t5 oracle call (B={DIALOG_B}, {len(live)} live): wall {br['wall_ms']:.1f} ms; "
+                f"attention cores {br['t5 attention core']:.1f} ms in {br['calls']['t5 attention core']} calls; "
+                f"f32 lm_head {br['t5 f32 lm_head']:.1f} ms in {br['calls']['t5 f32 lm_head']} calls")
+            out.update(dialog_t5_attention_ms=br["t5 attention core"], dialog_t5_lm_head_ms=br["t5 f32 lm_head"])
+    if on_card:
+        res = _t5_card_vs_cpu(t5_config, device)
+        log(f"dialog (3d) T5 card (bf16) vs CPU (f32), flan-t5-xl widths at {T5_CHECK_LAYERS} + {T5_CHECK_LAYERS} "
+            f"layers: relative RMS error encoder {res['encoder']:.4f}, first-step logits {res['logits']:.4f}; the "
+            f"CPU's own bf16: {res['encoder_cpu_bf16']:.4f}, {res['logits_cpu_bf16']:.4f} (bound {T5_RMS_FACTOR}x)")
+    return out
+
+
+def _counting_gate_hooks(record: list):
+    """Patches that record, for every serving call, train step and score
+    call a dialog gate makes, (kind, layers, new tokens, extra trunk
+    forwards); restored by the returned undo."""
+    from lmrl_gym_torch.algos import bc as bc_mod, ilql as ilql_mod, mc as mc_mod, value_policy as vp
+
+    saved = []
+
+    def patch(obj, name, fn):
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, fn)
+
+    gen_lm, gen_guided = vp.LMServer.generate, vp.ValueGuidedServer.generate
+
+    def lm_generate(self, params, ids, mask, sampling, *a, **kw):
+        record.append(("serve", params.config.num_layers, sampling.max_new_tokens, 1))
+        return gen_lm(self, params, ids, mask, sampling, *a, **kw)
+
+    def guided_generate(self, params, ids, mask, sampling, *a, **kw):
+        trunks = 2 if params.pi_beta is not None and not self.share_trunk else 1
+        record.append(("serve", params.base.config.num_layers, sampling.max_new_tokens, trunks))
+        return gen_guided(self, params, ids, mask, sampling, *a, **kw)
+
+    patch(vp.LMServer, "generate", lm_generate)
+    patch(vp.ValueGuidedServer, "generate", guided_generate)
+    for name in ("make_ilql_score_fn", "make_mc_score_fn"):
+        make = getattr(vp, name)
+
+        def counted_make(core, params, *a, _make=make, **kw):
+            score = _make(core, params, *a, **kw)
+
+            def counted(ids, am):
+                record.append(("score", params.base.config.num_layers, 0, 1))
+                return score(ids, am)
+            return counted
+        patch(vp, name, counted_make)
+
+    def step_hook(make, kind):
+        def counted_make(*a, **kw):
+            step = make(*a, **kw)
+
+            def counted(state, batch, *sa, **skw):
+                if kind == "bc":
+                    L, fwd = state.model.params.config.num_layers, 1
+                elif kind == "ilql":
+                    L = state.base.params.config.num_layers
+                    fwd = 1 + (state.target_base_params is not None) + (batch.next_token_ids is not None)
+                else:
+                    L, fwd = state.base.params.config.num_layers, 1
+                out = step(state, batch, *sa, **skw)
+                record.append(("train", L, fwd, float(out[1])))
+                return out
+            return counted
+        return counted_make
+
+    patch(bc_mod, "make_bc_train_step", step_hook(bc_mod.make_bc_train_step, "bc"))
+    patch(lm_oracle, "make_bc_train_step", step_hook(lm_oracle.make_bc_train_step, "bc"))
+    patch(ilql_mod, "make_ilql_train_step", step_hook(ilql_mod.make_ilql_train_step, "ilql"))
+    patch(mc_mod, "make_mc_train_step", step_hook(mc_mod.make_mc_train_step, "mc"))
+
+    def undo():
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+    return undo
+
+
+def phase_dialog_gates(device="cuda", extra=()) -> dict:
+    """Phase 3e: the port's three dialog gates at their own widths (f32,
+    d256 L4 H4 policies; oracle d128 / d256 L4, buyer d192 L4) and a cut
+    budget (DIALOG_GATE_ARGS; episodes of DIALOG_GATE_TURNS turns and a
+    smaller oracle QA set, `_cut_dialog_budget`): launch counts exactly the budget's — per
+    serving call L K1 and L x new-token K4 per trunk (two trunks for the
+    guided decode), per score call L K1, per BC and MC step L each of
+    K1/K2/K3, per ILQL step 2L K1 (trained and target trunk) and L K2/K3 —
+    all on the CUDA-core variants, as f32 runs them; finite losses; mean
+    rewards in the env's range (20Q: [-20, 0]; Car-Dealer: finite) and every
+    fidelity and probe accuracy in [0, 1]."""
+    out = {}
+    for name, module in (("car_dealer", car_dealer_ilql_gate), ("dialog_ilql", dialog_ilql_gate),
+                         ("twenty_questions", twenty_questions_gate)):
+        argv = DIALOG_GATE_ARGS[name] + list(extra) + ["--device", device]
+        args = module.parse_args(argv)
+        record: list = []
+        undo = _counting_gate_hooks(record)
+        try:
+            with _cut_dialog_budget():
+                result, counts, s = _counted(lambda: module.run(module.Gate(args)), device=device)
+        finally:
+            undo()
+        want = [0] * 7
+        for kind, L, n, extra_n in record:
+            if kind == "serve":
+                w = _want_f32(L, fwd=extra_n, dec=extra_n * n)
+            elif kind == "score":
+                w = _want_f32(L, fwd=1)
+            else:
+                w = _want_f32(L, fwd=n, bwd=1)
+            want = [a + b for a, b in zip(want, w)]
+        want = tuple(want)
+        check(counts == want, f"dialog gate {name}: {_fmt_counts(counts)}, want {want}")
+        losses = [r[3] for r in record if r[0] == "train"]
+        check(all(math.isfinite(x) for x in losses), f"dialog gate {name}: losses {losses}")
+        rewards = {k: v for k, v in result.get("all_evals", {}).items()}
+        rewards.update({k: result[k] for k in ("bc_reward", "filtered_bc_reward") if k in result})
+        if name == "car_dealer":
+            check(all(math.isfinite(r) for r in rewards.values()), f"dialog gate {name}: rewards {rewards}")
+        else:
+            check(all(-20.0 <= r <= 0.0 for r in rewards.values()), f"dialog gate {name}: rewards {rewards}")
+        rates = [result[k] for k in ("buyer_fidelity", "oracle_fidelity", "ilql_probe_acc", "mc_probe_acc")
+                 if result.get(k) is not None]
+        check(all(0.0 <= r <= 1.0 for r in rates), f"dialog gate {name}: rates {rates}")
+        if name == "car_dealer":
+            check(result["buyer_fidelity"] is not None, "dialog gate car_dealer: no LM buyer fidelity")
+        n_kind = {k: sum(1 for r in record if r[0] == k) for k in ("serve", "score", "train")}
+        log(f"dialog gate (3e) {name} ({' '.join(DIALOG_GATE_ARGS[name])}): {s:.1f} s, {n_kind['serve']} serving "
+            f"calls, {n_kind['score']} score calls, {n_kind['train']} train steps, {_fmt_counts(counts)}; rewards "
+            f"{ {k: round(v, 4) for k, v in rewards.items()} }, rates {rates}")
+        out.update(_path_counts(f"dialog_gate_{name}", counts))
+        out[f"dialog_gate_{name}_s"] = s
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
@@ -2380,17 +2896,24 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = phase_device()
+        log(f"phase 1: {time.perf_counter() - t_start:.1f} s")
+        t0 = time.perf_counter()
         errs = phase_kernel_checks()
         for phase in (phase_bwd_checks, phase_path_checks):
             for name, err in phase().items():
                 errs[name] = max(errs.get(name, 0.0), err)
         shapes = phase_main_path_shapes()
         shapes.update(phase_train_shapes())
+        log(f"phases 2, 2p: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         launches = phase_slice()
         launches.update(phase_train(launches["config"]))
+        log(f"phases 3, 3t: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         launches.update(phase_online(launches["config"]))
         launches.update(phase_gate())
         launches.update(phase_text_env(launches["serving"], launches["config"]))
+        log(f"phases 3o, 3g, 3s: {time.perf_counter() - t0:.1f} s")
         t_slice6 = time.perf_counter()
         launches.update(phase_mc(launches["config"]))
         launches.update(phase_cql(launches["config"]))
@@ -2410,8 +2933,16 @@ def main() -> int:
             launches.update(phase())
             log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         log(f"phases 3k, 3u, 3h: {time.perf_counter() - t_slice8:.1f} s")
+        t_slice9 = time.perf_counter()
+        for name, phase in (("3d", phase_dialog), ("3e", phase_dialog_gates)):
+            t0 = time.perf_counter()
+            launches.update(phase())
+            log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        log(f"phases 3d, 3e: {time.perf_counter() - t_slice9:.1f} s")
+        t0 = time.perf_counter()
         phase_card_vs_cpu(launches["base"], launches["config"])
         phase_train_card_vs_cpu(launches["config"])
+        log(f"phase 4: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2460,7 +2991,9 @@ def main() -> int:
                      "score_call_mc", "maze_gate_cql", "maze_gate_mc", "text_nav_turn", "ppo_forward_text_nav",
                      "ppo_step_text_nav", "ppo_step_text_nav_bc", "offline_loop_step", "online_loop_step",
                      "ppo_gate_text_nav", "ppo_gate_maze", "markov_maze", "markov_chess", "markov_guided",
-                     "online_markov_round", "online_markov_step", "chess_gate"):
+                     "online_markov_round", "online_markov_step", "chess_gate", "dialog_asker_turn",
+                     "dialog_oracle_turn", "dialog_gate_car_dealer", "dialog_gate_dialog_ilql",
+                     "dialog_gate_twenty_questions"):
             if f"{entry['name']}_{path}" in launches:
                 entry[f"launches_{path}"] = launches[f"{entry['name']}_{path}"]
             if f"{entry['name']}_tc_{path}" in launches:

@@ -1,8 +1,8 @@
-"""Serving path: value-guided and plain-LM decoding, the text policy over
-them, and word-level reranking. The port of
+"""Serving path: value-guided, plain-LM and encoder-decoder decoding, the
+text policy over them, and word-level reranking. The port of
 `lmrl_gym_tpu/algos/value_policy.py` (`ValueGuidedServer`, `LMServer`,
-`GenerationPolicy`, the score functions, `ReRankerPolicy` and
-`tokenize_histories_for_scoring`).
+`Seq2SeqServer`, `GenerationPolicy`, the score functions,
+`ReRankerPolicy` and `tokenize_histories_for_scoring`).
 
 `ValueGuidedServer.generate` decodes with logits = π_β + β·min(q1,q2)
 (the reference's value_rl_base/gpt2/generation.py:36-121): both trunks run
@@ -42,13 +42,17 @@ from lmrl_gym_torch.models.transformer import KVCache, mask_pad_logits
 from lmrl_gym_torch.text.frames import Text, TextHistory, TokenHistory, text_history_to_str
 
 
-def _encode_prompts(tok, prompts: Sequence[str], max_input_length: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prompts → LEFT-padded (truncated from the left) ids and their mask."""
+def _encode_prompts(
+    tok, prompts: Sequence[str], max_input_length: int, device, padding: Padding = Padding.LEFT
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prompts → padded ids (truncated from the left) and their mask:
+    LEFT-padded for the decoder-only servers, RIGHT-padded for an encoder's
+    input (`Seq2SeqServer`), where real tokens must start at position 0."""
     ids = block_sequences(
         [tok.encode(p) for p in prompts],
         tok.pad_token_id,
         np.int64,
-        BlockingStrategy(Padding.LEFT, Truncation.LEFT, max_input_length),
+        BlockingStrategy(padding, Truncation.LEFT, max_input_length),
     )
     ids = torch.from_numpy(ids).to(device)
     return ids, (ids != tok.pad_token_id).to(torch.int32)
@@ -224,6 +228,46 @@ class LMServer:
         gumbel: Optional[torch.Tensor] = None,  # [max_new_tokens, B, V] replayed noise
     ) -> List[str]:
         ids, mask = _encode_prompts(self.tokenizer, prompts, max_input_length, self.core.device)
+        tokens, token_mask = self.generate(params, ids, mask, sampling, generator, gumbel)
+        return _decode(self.tokenizer, tokens, token_mask)
+
+
+class Seq2SeqServer:
+    """Encoder-decoder (T5) serving — the reference's T5Inference oracle
+    role (twenty_questions/env/oracle.py:8-9). The same generate_from_strs
+    surface as LMServer, so LMOracle / LMGuessCityOracle take either; the
+    prompt goes to the encoder (right-padded, so the relative-position
+    buckets ignore pad slots) and decoding starts from
+    decoder_start_token_id. `params` is the `EncoderDecoder`."""
+
+    def __init__(self, core, tokenizer):
+        self.core = core  # models.encdec.EncDecCore
+        self.tokenizer = tokenizer
+
+    def generate(
+        self,
+        params,
+        enc_ids: torch.Tensor,  # [B, T_enc] RIGHT-padded
+        enc_mask: torch.Tensor,
+        sampling: SamplingConfig,
+        generator: Optional[torch.Generator] = None,
+        gumbel: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        B = enc_ids.shape[0]
+        logits_fn, carry = self.core.make_seq2seq_logits_fn(params, enc_ids, enc_mask, 1 + sampling.max_new_tokens)
+        start = torch.full((B, 1), self.core.config.decoder_start_token_id, dtype=torch.int64, device=enc_ids.device)
+        return generate(logits_fn, carry, start, torch.ones_like(start, dtype=torch.int32), sampling, generator, gumbel)
+
+    def generate_from_strs(
+        self,
+        params,
+        prompts: Sequence[str],
+        max_input_length: int,
+        sampling: SamplingConfig,
+        generator: Optional[torch.Generator] = None,
+        gumbel: Optional[torch.Tensor] = None,  # [max_new_tokens, B, V] replayed noise
+    ) -> List[str]:
+        ids, mask = _encode_prompts(self.tokenizer, prompts, max_input_length, self.core.device, Padding.RIGHT)
         tokens, token_mask = self.generate(params, ids, mask, sampling, generator, gumbel)
         return _decode(self.tokenizer, tokens, token_mask)
 

@@ -1,10 +1,11 @@
-"""Task registry, the maze, chess and text-nav parts: the port of
+"""Task registry, the maze, chess, text-nav and dialog parts: the port of
 `transitions_to_chain`, `build_maze_env`, `generate_maze_chains`,
 `build_chess_endgame_env`, `generate_chess_endgame_chains`,
-`build_chess_env`, `generate_chess_chains`, `build_text_nav_env` and
-`generate_text_nav_chains` from `lmrl_gym_tpu/cli/tasks.py` (host only),
-with the `Task` record and a `TASKS` table that holds the tasks ported so
-far.
+`build_chess_env`, `generate_chess_chains`, `build_text_nav_env`,
+`generate_text_nav_chains` and the Twenty-Questions, Guess-My-City and
+Car-Dealer builders, data-gen policies and chain generators from
+`lmrl_gym_tpu/cli/tasks.py` (host only), with the `Task` record and a
+`TASKS` table that holds the tasks ported so far.
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from lmrl_gym_torch.envs.base import TextEnv
-from lmrl_gym_torch.text.frames import Text, TextTrajectory, TextTrajectoryChain
+from lmrl_gym_torch.envs.base import TextEnv, TextPolicy
+from lmrl_gym_torch.text.frames import Text, TextHistory, TextTrajectory, TextTrajectoryChain
 
 
 @dataclass
@@ -211,6 +212,190 @@ def generate_chess_chains(n: int, seed: int) -> List[TextTrajectoryChain]:
                                    seed=seed)
 
 
+# ---------------- twenty questions ----------------
+
+
+class HeuristicAskerPolicy(TextPolicy):
+    """Category-elimination asker for data generation: asks category
+    questions, then guesses members of the confirmed category."""
+
+    def __init__(self, rng: Optional[random.Random] = None):
+        from lmrl_gym_torch.envs.twenty_questions.data import DEFAULT_OBJECT_DICT
+
+        self.rng = rng or random.Random()
+        self.categories = list(DEFAULT_OBJECT_DICT.keys())
+        self.object_dict = DEFAULT_OBJECT_DICT
+        self.category_questions = {
+            "Animals": "Is it an animal?",
+            "Fruits": "Is it a fruit?",
+            "Vegetables": "Is it a vegetable?",
+            "Vehicles": "Is it a vehicle?",
+            "Clothes": "Is it clothing?",
+            "Electronics": "Is it an electronic device?",
+            "Musical Instruments": "Is it a musical instrument?",
+            "Furniture": "Is it furniture?",
+            "Sports": "Is it a sport?",
+            "Kitchen Tools": "Is it a kitchen utensil?",
+            "Tools": "Is it a tool?",
+            "Toys": "Is it a toy?",
+            "Jewelry": "Is it jewelry?",
+            "Nature": "Is it nature?",
+            "Art": "Is it art?",
+            "Office Supplies": "Is it an office supply?",
+            "Garden Supplies": "Is it a garden tool?",
+        }
+
+    def act(self, text_history: TextHistory) -> TextHistory:
+        # parse conversation: [init, q, a, q, a, ...]
+        qa = [(text_history[i].text.strip(), text_history[i + 1].text.strip())
+              for i in range(1, len(text_history) - 1, 2)]
+        confirmed = None
+        asked = set()
+        guessed = set()
+        for q, a in qa:
+            asked.add(q)
+            for category, cq in self.category_questions.items():
+                if q == cq and a == "Yes.":
+                    confirmed = category
+            if q.startswith("Is it a ") or q.startswith("Is it an "):
+                guessed.add(q)
+        if confirmed is None:
+            order = sorted(self.category_questions.values())
+            self.rng.shuffle(order)
+            for cq in order:
+                if cq not in asked:
+                    return text_history + (Text(cq + "\n", True),)
+            confirmed = self.rng.choice(self.categories)
+        # guess members
+        members = []
+        for entry in self.object_dict[confirmed]:
+            members.append(entry.split(";")[0])
+        self.rng.shuffle(members)
+        for m in members:
+            article = "an" if m[0].lower() in "aeiou" else "a"
+            q = f"Is it {article} {m.lower()}?"
+            if q not in guessed:
+                return text_history + (Text(q + "\n", True),)
+        return text_history + (Text("Is it a mystery?\n", True),)
+
+
+def build_twenty_questions_env(max_conversation_length: int = 20) -> TextEnv:
+    from lmrl_gym_torch.envs.twenty_questions.data import get_default_word_list
+    from lmrl_gym_torch.envs.twenty_questions.env import TwentyQuestionsEnv
+    from lmrl_gym_torch.envs.twenty_questions.oracle import ScriptedOracle
+
+    return TwentyQuestionsEnv(
+        ScriptedOracle(), get_default_word_list(), max_conversation_length
+    )
+
+
+def generate_twenty_questions_chains(n: int, seed: int) -> List[TextTrajectoryChain]:
+    env = build_twenty_questions_env()
+    rng = random.Random(seed)
+    chains = []
+    for i in range(n):
+        policy = HeuristicAskerPolicy(rng=rng)
+        from lmrl_gym_torch.envs.base import interact_environment
+
+        transitions = interact_environment(env, policy, env_seed=seed * 104729 + i)[0]
+        chains.append(transitions_to_chain(transitions))
+    return chains
+
+
+# ---------------- guess city ----------------
+
+
+def build_guess_city_env(max_conversation_length: int = 20) -> TextEnv:
+    from lmrl_gym_torch.envs.guess_city.data import get_default_word_list
+    from lmrl_gym_torch.envs.guess_city.env import GuessCityEnv, ScriptedGuessCityOracle
+
+    return GuessCityEnv(
+        ScriptedGuessCityOracle(), get_default_word_list(), max_conversation_length
+    )
+
+
+class HeuristicCityAskerPolicy(TextPolicy):
+    def __init__(self, rng: Optional[random.Random] = None):
+        from lmrl_gym_torch.envs.guess_city.data import DEFAULT_CITIES
+
+        self.rng = rng or random.Random()
+        self.cities = DEFAULT_CITIES
+        self.continent_questions = [
+            "Is it in Europe?", "Is it in Asia?", "Is it in America?",
+            "Is it in Africa?", "Is it in Oceania?",
+        ]
+
+    def act(self, text_history: TextHistory) -> TextHistory:
+        qa = [(text_history[i].text.strip(), text_history[i + 1].text.strip())
+              for i in range(1, len(text_history) - 1, 2)]
+        asked = {q for q, _ in qa}
+        for cq in self.continent_questions:
+            if cq not in asked:
+                return text_history + (Text(cq + "\n", True),)
+        candidates = [c.split(",")[0] for c in self.cities]
+        self.rng.shuffle(candidates)
+        for name in candidates:
+            q = f"Is it {name}?"
+            if q not in asked:
+                return text_history + (Text(q + "\n", True),)
+        return text_history + (Text("Is it Atlantis?\n", True),)
+
+
+def generate_guess_city_chains(n: int, seed: int) -> List[TextTrajectoryChain]:
+    env = build_guess_city_env()
+    rng = random.Random(seed)
+    from lmrl_gym_torch.envs.base import interact_environment
+
+    chains = []
+    for i in range(n):
+        policy = HeuristicCityAskerPolicy(rng=rng)
+        transitions = interact_environment(env, policy, env_seed=seed * 15485863 + i)[0]
+        chains.append(transitions_to_chain(transitions))
+    return chains
+
+
+# ---------------- car dealer ----------------
+
+
+def build_car_dealer_env(max_conversation_length: int = 50) -> TextEnv:
+    from lmrl_gym_torch.envs.car_dealer.env import CarDealerEnv, ScriptedBuyerPolicy
+
+    return CarDealerEnv(
+        buyer_factory=lambda info: ScriptedBuyerPolicy(info, patience=4),
+        max_conversation_length=max_conversation_length,
+    )
+
+
+class ScriptedSellerPolicy(TextPolicy):
+    """Data-gen seller: pitches, then offers a price ladder."""
+
+    def __init__(self, rng: Optional[random.Random] = None):
+        self.rng = rng or random.Random()
+
+    def act(self, text_history: TextHistory) -> TextHistory:
+        n_turns = sum(1 for t in text_history if t.is_action)
+        base = self.rng.choice([20000, 35000, 55000, 75000])
+        price = int(base * (0.9 ** n_turns))
+        if n_turns == 0:
+            line = "Welcome! We have excellent cars on the lot today.\n"
+        else:
+            line = f"I can offer this one for ${price:,}. It's a great deal.\n"
+        return text_history + (Text(line, True),)
+
+
+def generate_car_dealer_chains(n: int, seed: int) -> List[TextTrajectoryChain]:
+    from lmrl_gym_torch.envs.base import interact_environment
+
+    env = build_car_dealer_env()
+    rng = random.Random(seed)
+    chains = []
+    for i in range(n):
+        policy = ScriptedSellerPolicy(rng=rng)
+        transitions = interact_environment(env, policy, env_seed=seed * 32452843 + i)[0]
+        chains.append(transitions_to_chain(transitions))
+    return chains
+
+
 TASKS: Dict[str, Task] = {
     "maze": Task("maze", build_maze_env, generate_maze_chains, max_length=192),
     "chess": Task("chess", build_chess_env, generate_chess_chains, max_length=160),
@@ -221,5 +406,17 @@ TASKS: Dict[str, Task] = {
         lambda **kw: build_text_nav_env(display_location=False, **kw),
         generate_text_nav_chains,
         max_length=512,
+    ),
+    "twenty_questions": Task(
+        "twenty_questions",
+        build_twenty_questions_env,
+        generate_twenty_questions_chains,
+        max_length=1024,
+    ),
+    "guess_city": Task(
+        "guess_city", build_guess_city_env, generate_guess_city_chains, max_length=1024
+    ),
+    "car_dealer": Task(
+        "car_dealer", build_car_dealer_env, generate_car_dealer_chains, max_length=1024
     ),
 }

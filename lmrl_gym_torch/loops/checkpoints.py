@@ -31,7 +31,14 @@ from torch import nn
 
 from lmrl_gym_torch.core.checkpointing import create_path, load_config, load_pytree, save_config, save_pytree
 from lmrl_gym_torch.core.optimizer import TrainState
-from lmrl_gym_torch.models.convert import head_params_from_jax, head_params_to_jax, params_from_jax, params_to_jax
+from lmrl_gym_torch.models.convert import (
+    encdec_params_to_jax,
+    head_params_from_jax,
+    head_params_to_jax,
+    params_from_jax,
+    params_to_jax,
+)
+from lmrl_gym_torch.models.encdec import EncoderDecoder
 from lmrl_gym_torch.models.transformer import Transformer
 
 
@@ -70,9 +77,11 @@ class LoopState:
 
 def module_tree(module: Any) -> Any:
     """A module's parameters as the flax param tree the JAX package saves
-    (a trunk or a head); any other tree is saved as it is."""
+    (a trunk, a T5 or a head); any other tree is saved as it is."""
     if isinstance(module, Transformer):
         return params_to_jax(module.state_dict(), module.config)
+    if isinstance(module, EncoderDecoder):
+        return encdec_params_to_jax(module.state_dict())
     if isinstance(module, nn.Module):
         return head_params_to_jax(module.state_dict())
     return module

@@ -13,9 +13,15 @@ The same maps carry gradient trees (same structure as the params), so a
 test can hold the port's gradients to `jax.grad`'s by name.
 `params_to_jax` and `head_params_to_jax` go the other way, so the port
 writes checkpoints under the flax key paths (`core/checkpointing.py`).
+`encdec_params_from_jax` and `encdec_params_to_jax` do the same for the
+T5 `EncoderDecoder` (`models/encdec.py`): flax `Embed` tables
+(`embedding`) become `nn.Embedding.weight`, `Dense` kernels are
+transposed, `RMSNorm` scales become `weight`, and the block lists
+`enc_blocks_<i>` / `dec_blocks_<i>` become `enc_blocks.<i>` / `dec_blocks.<i>`.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -180,3 +186,43 @@ def ppo_state_from_jax(state, config: TransformerConfig, policy: Mapping, value_
     state.policy.params.load_state_dict(params_from_jax(policy, config))
     _load_heads([(state.value_head.params, value_head)])
     return state
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            yield from _flatten(v, path)
+        else:
+            yield path, v
+
+
+def encdec_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax `EncoderDecoder` params → the port's `EncoderDecoder` state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(tree):
+        *mods, name = path.split("/")
+        key = re.sub(r"^(enc|dec)_blocks_(\d+)", r"\1_blocks.\2", ".".join(mods))
+        t = _t(leaf)
+        sd[f"{key}.weight"] = t.T.contiguous() if name == "kernel" else t
+    return sd
+
+
+def encdec_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """The inverse of `encdec_params_from_jax`: nested dicts of CPU tensors
+    in the parameters' dtype under the flax key paths."""
+    tree: Dict[str, dict] = {}
+    for key, t in sd.items():
+        mods = re.sub(r"^(enc|dec)_blocks\.(\d+)", r"\1_blocks_\2", key[: -len(".weight")]).split(".")
+        t = t.detach().cpu()
+        if mods[-1] in ("shared", "enc_rel_bias", "dec_rel_bias"):
+            name = "embedding"
+        elif mods[-1].startswith("ln") or mods[-1].endswith("ln_f"):
+            name = "scale"
+        else:
+            name, t = "kernel", t.T.contiguous()
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = t
+    return tree

@@ -101,6 +101,15 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.T
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """flax `Embed`'s lookup (`jnp.take`, default "fill" mode): rows of the
+    non-negative ids past the table's end are NaN, where a CUDA gather
+    would assert. A decode that runs past max_position_embeddings (a long
+    prompt plus its new tokens) thus goes NaN, as in the JAX package."""
+    n = table.shape[0]
+    return F.embedding(ids.clamp(max=n - 1), table).masked_fill((ids >= n)[..., None], float("nan"))
+
+
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax `Dense(dtype=dtype)`: inputs and params cast to `dtype`."""
     bias = layer.bias.to(dtype) if layer.bias is not None else None
@@ -356,7 +365,7 @@ class Transformer(nn.Module):
 
         x = F.embedding(input_ids, self.wte.weight).to(dtype)
         if cfg.position_embedding == "learned":
-            x = x + F.embedding(position_ids, self.wpe.weight).to(dtype)
+            x = x + take_fill(self.wpe.weight, position_ids).to(dtype)
         drop = None
         if train_drop:
             if cfg.embd_pdrop > 0:

@@ -120,3 +120,33 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     # the explicit CPU request runs
     assert Transformer(cfg, device="cpu").wte.weight.device.type == "cpu"
     assert LMCore(cfg, device="cpu").device.type == "cpu"
+
+
+def test_dialog_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
+    """The dialog stack's entry points — the T5, its core, the oracle
+    trainers, `load_oracle` and the three dialog gates — raise without CUDA
+    unless the caller asks for the CPU."""
+    from lmrl_gym_torch.envs import lm_oracle
+    from lmrl_gym_torch.models.encdec import EncDecCore, EncoderDecoder, tiny_encdec_config
+    from lmrl_gym_torch.scripts import car_dealer_ilql_gate, dialog_ilql_gate, twenty_questions_gate
+
+    windows = lm_oracle.collect_twenty_questions_qa(1, seed=0)[:4]
+    cfg = lm_oracle.OracleTrainConfig(epochs=1, hidden_size=64, num_layers=2)
+    lm_oracle.train_and_save_oracle("twenty_questions", str(tmp_path), lm_oracle.OracleTrainConfig(
+        n_episodes=1, epochs=1, hidden_size=64, num_layers=2), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    t5 = tiny_encdec_config()
+    for make in (
+        lambda: EncoderDecoder(t5),
+        lambda: EncDecCore(t5),
+        lambda: lm_oracle.train_oracle_lm(windows, cfg),
+        lambda: lm_oracle.train_t5_oracle_lm(windows, cfg),
+        lambda: lm_oracle.load_oracle(str(tmp_path)),
+        lambda: car_dealer_ilql_gate.main(["--behavior-episodes", "1", "--bc-epochs", "1"]),
+        lambda: dialog_ilql_gate.main(["--behavior-episodes", "1", "--bc-epochs", "1"]),
+        lambda: twenty_questions_gate.main(["--behavior-episodes", "1", "--bc-epochs", "1"]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    core, _, params = lm_oracle.load_oracle(str(tmp_path), device="cpu")
+    assert core.device.type == "cpu" and next(params.parameters()).device.type == "cpu"

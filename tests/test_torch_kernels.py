@@ -544,3 +544,45 @@ def test_markov_shapes_match_plain(cuda, obs, act, H):
         assert excess(out, ref, torch.bfloat16).max().item() <= TOL[torch.bfloat16][0]
     for T in (W, obs):
         _check_bwd_against_plain(B, H, T, T, Dh, torch.bfloat16, False, seed=T, tc=True)
+
+
+# the dialog paths (name, heads, Dh, prompt, new tokens, train windows):
+# the gates' decoder oracle (d128 H4: 256-token prompts, 8 new; BC on
+# 256-token windows), the Car-Dealer LM buyer (d192 H4: 768 + 64; BC on
+# 512), the policies (d256 H4: 768-token prompts, 48 new; ILQL/MC/BC on
+# 768 (20Q) and 448 (Car-Dealer) windows)
+DIALOG_SHAPES = [("oracle", 4, 32, 256, 8, (256,)), ("buyer", 4, 48, 768, 64, (512,)),
+                 ("policy", 4, 64, 768, 48, (768, 448))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,H,Dh,prompt,new,windows", DIALOG_SHAPES, ids=[s[0] for s in DIALOG_SHAPES])
+def test_dialog_shapes_match_plain(cuda, dtype, name, H, Dh, prompt, new, windows):
+    """K1 on the left-padded prefill (a cache view of prompt + new slots,
+    with the padding bias), K4 at the first, middle and last new-token
+    slot, and K2/K3 on the train windows; f32 as the gates run (the
+    CUDA-core variants) and bf16 (the tensor-core ones, Dh 32 and 48 among
+    them), each against its plain version."""
+    B, W = 4, prompt + new
+    tc = dtype == torch.bfloat16
+    cache_k = _randn(B, H, W, Dh, dtype=dtype, seed=Dh)
+    cache_v = _randn(B, H, W, Dh, dtype=dtype, seed=Dh + 1)
+    bias = _left_pad_bias(B, W, [0, 5, prompt // 2, prompt - 1])
+    q = _randn(B, prompt, 3, H, Dh, dtype=dtype, seed=Dh + 2)[:, :, 0].transpose(1, 2)
+    before = (tfa.flash_fwd.launches, tfa.flash_fwd.tc_launches)
+    out, lse = tfa.flash_fwd(q, cache_k[:, :, :prompt], cache_v[:, :, :prompt], bias[:, :prompt])
+    assert (tfa.flash_fwd.launches - before[0], tfa.flash_fwd.tc_launches - before[1]) == (1, int(tc))
+    ref, ref_lse = tfa._plain_attention(q, cache_k[:, :, :prompt], cache_v[:, :, :prompt], bias[:, :prompt], True,
+                                        Dh**-0.5)
+    torch.cuda.synchronize()
+    rows = bias[:, :prompt] == 0
+    assert excess(out, ref, dtype).amax(dim=(1, 3))[rows].max().item() <= TOL[dtype][0]
+    assert (lse - ref_lse).abs().amax(dim=1)[rows].max().item() <= 1e-3
+    q1 = _randn(B, H, 1, Dh, dtype=dtype, seed=Dh + 3)
+    for index in (prompt, prompt + new // 2, W - 1):
+        out = tda.decode_attention(q1, cache_k, cache_v, index, bias, Dh**-0.5)
+        ref = tda._plain_decode_attention(q1, cache_k, cache_v, index, bias, Dh**-0.5)
+        torch.cuda.synchronize()
+        assert excess(out, ref, dtype).max().item() <= TOL[dtype][0], index
+    for T in windows:
+        _check_bwd_against_plain(B, H, T, T, Dh, dtype, True, seed=T + Dh, tc=tc)

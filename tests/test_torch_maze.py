@@ -62,7 +62,8 @@ def test_maze_builders_and_chains_match():
             tb = [(tuple((x.text, x.is_action) for x in tt.text_history), tt.reward, tt.done) for tt in b.to_list()]
             assert ja == tb
     # the port's task table holds the tasks ported so far, each as the JAX table has it
-    assert set(ttasks.TASKS) == {"maze", "chess", "chess_endgames", "text_nav", "text_nav_partial"}
+    assert set(ttasks.TASKS) == {"maze", "chess", "chess_endgames", "text_nav", "text_nav_partial", "twenty_questions",
+                                 "guess_city", "car_dealer"}
     for name, task in ttasks.TASKS.items():
         assert task.max_length == jtasks.TASKS[name].max_length and task.stop_token == jtasks.TASKS[name].stop_token
 

@@ -155,3 +155,22 @@ def test_heads_match_jax(kind, kw):
     with torch.no_grad():
         out = head(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_positions_past_the_table_read_nan_as_jax():
+    """flax's `Embed` looks positions up with `jnp.take` in "fill" mode:
+    a position at or past max_position_embeddings reads NaN (a long prompt
+    plus its new tokens, as the dialog gates' LM buyer can reach); the
+    port's lookup (`take_fill`) does the same where a CUDA gather would
+    assert. Rows before it agree; rows from it on are NaN in both."""
+    jcfg, jparams, tcfg, model = _pair("gpt2")
+    T, P = 6, jcfg.max_position_embeddings
+    ids = np.random.default_rng(2).integers(0, jcfg.vocab_size, size=(2, T)).astype(np.int32)
+    pos = np.stack([np.arange(T), np.arange(P - 3, P - 3 + T)]).astype(np.int32)
+    jl, _, _ = jtr.Transformer(jcfg).apply({"params": jparams}, jnp.asarray(ids), position_ids=jnp.asarray(pos))
+    with torch.no_grad():
+        tl, _, _ = model(torch.from_numpy(ids).long(), position_ids=torch.from_numpy(pos).long())
+    jl, tl = np.asarray(jl), tl.numpy()
+    assert np.isnan(jl[1, 3:]).all() and np.isnan(tl[1, 3:]).all()
+    np.testing.assert_allclose(tl[0], jl[0], **TOL)
+    np.testing.assert_allclose(tl[1, :3], jl[1, :3], **TOL)
