@@ -44,7 +44,7 @@ Phases, each of which exits non-zero on failure:
    448), and the tensor-core variants at Dh 32 and 48 in bf16;
 3. serving at full width: value-guided Wordle serving with GPT-2-small
    (vocab 50,257 padded to 50,304), bf16 weights from a seed, two trunks,
-   twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and five
+   twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and three
    timed `rollout_wordle`s, each with the kernels' launch counts (every
    flash_fwd launch the tensor-core variant) and the rollout's invariants
    checked, and one more under torch.profiler for the
@@ -62,7 +62,7 @@ Phases, each of which exits non-zero on failure:
 3o. on-device online ILQL at full width (`loops/online_device.py::
    online_ilql_wordle`): GPT-2-small with f32 parameters and bf16
    activations, twin MLP Q heads and a V head, a separate target base,
-   AdamW, beta=32, `OnlineDeviceConfig()` (4 rounds of a B=256 one-trunk
+   AdamW, beta=32, `OnlineDeviceConfig()` cut to 2 rounds (of a B=256 one-trunk
    guided rollout on the live modules, then four B=64, T=128 train steps):
    per round the rollout's launches (84 flash_fwd, 720 decode_attn) and
    each step's (24 / 12 / 12), all on the tensor-core variants, the
@@ -72,7 +72,7 @@ Phases, each of which exits non-zero on failure:
    torch.profiler;
 3g. the port's Wordle ILQL gate (`lmrl_gym_torch/scripts/
    wordle_ilql_gate.py`) at its own width (d256, L4, H4, byte vocab 259
-   padded to 320) and a cut budget (50 BC, 50 %BC, 50 ILQL steps, eval
+   padded to 320) and a cut budget (25 BC, 25 %BC, 25 ILQL steps, eval
    batch 512, no OptimalPolicy bound): every stage runs, its launch counts
    are the budget's, and every return is finite and in [-6, 0];
 3s. legal-set and text-env serving on the phase-3 weights: a
@@ -131,7 +131,7 @@ Phases, each of which exits non-zero on failure:
    GPT-2-small over a 512-token vocab, bf16 weights from a seed,
    `rollout_markov` through `make_lm_step_fn`, B=512, 8 turns, on the maze
    (double_t_maze, 8 moves) and KQ-K chess (FEN, 8 moves): one warm-up and
-   three timed rollouts each with exact launches (K1 8 x 12 = 96; K4
+   two timed rollouts each with exact launches (K1 8 x 12 = 96; K4
    8 x 11 x 12 = 1,056 maze, 8 x 8 x 12 = 768 chess), turns that never come
    back to life, rewards in {0, -1, -4} / {1, 0, -1} and every chess
    frame's FEN valid for the port's engine, env-steps/s, one rollout each
@@ -142,7 +142,7 @@ Phases, each of which exits non-zero on failure:
    round the rollout's launches (192 / 1,536; the two-trunk value-guided
    chess rollout, the online loop's and the gate's step function) and
    each step's (36 / 12 / 12), finite losses, moving weights, wall times,
-   a rollout and four of a round's steps profiled;
+   a rollout and two of a round's steps profiled;
 3h. the port's chess gate (`lmrl_gym_torch/scripts/chess_ilql_gate.py`)
    at its own width (d256 L4 H4, grid observations) and a cut budget:
    launch counts exactly the budget's and every rate in [0, 1];
@@ -152,7 +152,7 @@ Phases, each of which exits non-zero on failure:
    prompts to 768 tokens, 48 new) against a flan-t5-xl-width T5 oracle
    (d2048, 24 + 24 layers, 32 heads, gated-gelu, untied; bf16 weights from
    a seed; `Seq2SeqServer`, 256-token right-padded encoder inputs, 8 new
-   tokens, greedy) in `BatchedTwentyQuestionsEnv`, B=64, 4 env turns; then
+   tokens, greedy) in `BatchedTwentyQuestionsEnv`, B=64, 3 env turns; then
    the same turns against a GPT-2-small decoder oracle (`LMServer`); per
    turn exact launches (asker 12 K1 and 576 K4; decoder oracle 12 and 96;
    the T5 none), every answer 'Yes.' or 'No.', every live history one
@@ -164,9 +164,21 @@ Phases, each of which exits non-zero on failure:
 3e. the port's three dialog gates (`lmrl_gym_torch/scripts/{car_dealer_
    ilql,dialog_ilql,twenty_questions}_gate.py`) at their own widths (f32)
    and a cut budget (a few dozen episodes, one epoch per stage, episodes
-   of at most 6 turns, 64 balanced oracle QA windows): launch counts exactly the budget's (counted from the
+   of at most 3 turns, 64 balanced oracle QA windows): launch counts exactly the budget's (counted from the
    serving calls, score calls and train steps each gate makes), finite
    losses, rewards in the env's range and fidelities in [0, 1];
+3i. the command line at full width (slice 10): `lmrl_gym_torch.cli.train`
+   runs ILQL on Wordle at GPT-2-small with the full 50,257-id vocabulary
+   (padded to 50,304) over the task BPE, with the size's default dropout
+   (attention-probability dropout 0.1 among it): 64 behavior episodes,
+   four B=16 steps, one eval of 8 value-guided games, the JAX package's
+   seven-module checkpoint layout; launches exact (the trained steps none:
+   attention dropout takes the einsum route; L K1 and 32·L K4 per guided
+   serving call); `cli.evaluate` reads the checkpoint and reproduces the
+   eval's reward; the trained base through `export_hf_pretrained` and
+   `load_hf_pretrained` with `transformers` and `safetensors` blocked,
+   to bit-identical logits; one attention-dropout training forward (f32,
+   B=16, T=160, keep masks replayed) on the card against the CPU;
 4. the same full-width serving weights at B=4 on the card (kernels, bf16)
    against the CPU (plain path, f32): header prefill plus 3 decode steps;
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
@@ -187,7 +199,8 @@ Phases, each of which exits non-zero on failure:
    PPO gates; and slice 8's: a Markov rollout on the maze and on chess,
    the guided chess rollout (3u's), an online Markov round and step, the cut
    chess gate; and slice 9's: a 3d asker turn and decoder-oracle turn, the
-   three cut dialog gates). Every kernel with two
+   three cut dialog gates; and slice 10's: the 3i train CLI run and the
+   evaluate CLI run). Every kernel with two
    variants carries the `variant` its main path runs and its `tc_launches`; and beside SDPA's backward
    (`library_ms`, which computes its own rowsum(dO ⊙ O)) the port's Δ pass
    (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`).
@@ -256,7 +269,7 @@ from lmrl_gym_torch.envs.wordle.env import ReformatWordleEnv, WordleEnv
 from lmrl_gym_torch.envs.wordle.vector import N_TRIES, WordleVectorEnv, WordleVocab
 from lmrl_gym_torch.loops import actor, online_device
 from lmrl_gym_torch.loops import checkpoints as loop_checkpoints
-from lmrl_gym_torch.loops.checkpoints import LoopState, dump_modules, restore_module
+from lmrl_gym_torch.loops.checkpoints import LoopState, restore_module
 from lmrl_gym_torch.loops.offline import OfflineLoopConfig, offline_train_loop
 from lmrl_gym_torch.loops.online import OnlineLoopConfig, online_train_loop
 from lmrl_gym_torch.loops.online_device import (
@@ -323,7 +336,8 @@ GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 2.0**-6)}
 # card (bf16 weights/activations, kernels) vs CPU (f32, plain path) logits
 # after 12 layers: bf16 keeps ~3 significant digits per op, logits ~ ±3
 LOGIT_TOL = 0.1
-ROLLOUT_REPS = 5  # timed rollouts; the median is reported beside min and max
+ROLLOUT_REPS = 3  # timed rollouts; the median is reported beside min and max
+ONLINE_ROUNDS = 2  # 3o's rounds (the config's default is 4)
 SPIN_CYCLES = 10_000_000  # cuda_ms's head start for the host: ~5 ms at the H100's 1.98 GHz boost
 PROFILER_TRIES = 3  # torch.profiler now and then records no device event on the card's machine
 # training: bench.py::bench_ilql_real_vocab's operating point
@@ -455,7 +469,7 @@ def sdpa_mask(bias, Tq: int, S: int, b: int = B):
     return mask.expand(b, 1, Tq, S)
 
 
-def sdpa_bwd_ms(q, k, v, bias, dout, scale: float, causal_only: bool) -> float:
+def sdpa_bwd_ms(q, k, v, bias, dout, scale: float, causal_only: bool, reps: int = 20) -> float:
     """The library yardstick for K2 + K3 together: scaled_dot_product_attention's
     backward, timed as device time of (forward + backward) − forward."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -463,8 +477,8 @@ def sdpa_bwd_ms(q, k, v, bias, dout, scale: float, causal_only: bool) -> float:
     Tq, S = q.shape[2], k.shape[2]
     kw = dict(is_causal=True) if causal_only else dict(attn_mask=sdpa_mask(bias, Tq, S, q.shape[0]))
     with torch.enable_grad():
-        t_fb = device_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs, scale=scale, **kw), (qs, ks, vs), dout))
-        t_f = device_ms(lambda: sdpa(qs, ks, vs, scale=scale, **kw))
+        t_fb = device_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs, scale=scale, **kw), (qs, ks, vs), dout), reps)
+        t_f = device_ms(lambda: sdpa(qs, ks, vs, scale=scale, **kw), reps)
     return t_fb - t_f
 
 
@@ -681,6 +695,7 @@ def _tc_counts():
 # maze gate's train steps (d256 H4: B=32, H=4), and the Text-Nav windows
 # blocked to 640 tokens of phase 3n's PPO steps and forwards (B=32, H=12)
 # and of the Text-Nav gate's (d256 H4)
+BWD_REPS = 5  # phase 2's per-case backward timings
 BWD_CASES = (
     (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, False), (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
     (TRAIN_B, H, DH, 96, TRAIN_T, False), (64, H, DH, T_MAX, T_MAX, False), (512, 4, DH, T_MAX, T_MAX, False),
@@ -733,14 +748,20 @@ def phase_bwd_checks() -> dict:
                                                   f"over tolerance {GRAD_TOL[dtype]}")
                 errs[name] = max(errs[name], err)
                 line.append(f"{name}_max_abs_err={err:.3e}")
-            t_dq = cuda_ms(lambda: flash_bwd_dq(*args, True, scale))
-            t_dkv = cuda_ms(lambda: flash_bwd_dkv(*args, True, scale))
-            t_pdq = cuda_ms(lambda: _plain_bwd_dq(*args, True, scale))
-            t_pdkv = cuda_ms(lambda: _plain_bwd_dkv(*args, True, scale))
-            t_lib = sdpa_bwd_ms(q, k, v, bias, dout, scale, causal_only=not padded and Tq == S)
+            # per-case times for the log (the kernels line takes phase_train_shapes'),
+            # over BWD_REPS calls; the library's backward (two profiler sessions)
+            # in bf16 only, the dtype the paths train in
+            t_dq = cuda_ms(lambda: flash_bwd_dq(*args, True, scale), BWD_REPS, 1)
+            t_dkv = cuda_ms(lambda: flash_bwd_dkv(*args, True, scale), BWD_REPS, 1)
+            t_pdq = cuda_ms(lambda: _plain_bwd_dq(*args, True, scale), BWD_REPS, 1)
+            t_pdkv = cuda_ms(lambda: _plain_bwd_dkv(*args, True, scale), BWD_REPS, 1)
+            lib = ""
+            if dtype == torch.bfloat16:
+                t_lib = sdpa_bwd_ms(q, k, v, bias, dout, scale, causal_only=not padded and Tq == S, reps=BWD_REPS)
+                lib = f" library_bwd_ms={t_lib:.4f}"
             log(f"check flash_bwd {shape} offset={S - Tq} padding={padded} {str(dtype)[6:]}: "
                 + " ".join(line) + f" (atol, rtol fwd {TOL[dtype]}, bwd {GRAD_TOL[dtype]}) dq_ms={t_dq:.4f} dkv_ms={t_dkv:.4f} "
-                f"plain_dq_ms={t_pdq:.4f} plain_dkv_ms={t_pdkv:.4f} library_bwd_ms={t_lib:.4f}")
+                f"plain_dq_ms={t_pdq:.4f} plain_dkv_ms={t_pdkv:.4f}{lib}")
     _check_bwd_live_pad_rows(gen, errs)
     return errs
 
@@ -1199,14 +1220,15 @@ def traced_online_round(record: list, rollout_name: str = "rollout_wordle"):
 
 
 def phase_online(config) -> dict:
-    """Phase 3o: `online_ilql_wordle` at full width with its default config."""
+    """Phase 3o: `online_ilql_wordle` at full width with its default config,
+    cut to ONLINE_ROUNDS rounds."""
     L = config.num_layers
     core = LMCore(config)
     t0 = time.perf_counter()
     base, q1, q2, v = _train_modules(config, "cuda")
     ilql_config = ILQLConfig(beta=32.0)
     state = init_ilql_state(base, q1, q2, v, adamw(1e-4), adamw(1e-3), ilql_config)
-    ocfg = OnlineDeviceConfig()
+    ocfg = OnlineDeviceConfig(n_rounds=ONLINE_ROUNDS)
     env = WordleVectorEnv(WordleVocab.from_file())
     gen = torch.Generator(device="cuda").manual_seed(7)
     torch.cuda.synchronize()
@@ -1270,7 +1292,7 @@ def phase_online(config) -> dict:
     return out
 
 
-GATE_STEPS = 50  # 3g: updates per stage (BC, %BC, ILQL), one eval at the end
+GATE_STEPS = 25  # 3g: updates per stage (BC, %BC, ILQL), one eval at the end
 GATE_ARGS = ["--bc-steps", str(GATE_STEPS), "--pbc-steps", str(GATE_STEPS), "--ilql-steps", str(GATE_STEPS),
              "--eval-every", str(GATE_STEPS), "--eval-batch", "512", "--optimal-episodes", "0"]
 GATE_LAYERS = 4  # the gate's default --layers
@@ -1874,10 +1896,10 @@ def phase_maze_gate(device="cuda", extra=()) -> dict:
 TN_EPISODES, TN_MAX_STEPS = 16, 4  # 3n: Text-Nav episodes at batch 16, cut to 4 turns
 LOOP_STEPS = 2  # 3l: uninterrupted offline-loop epochs (one B=32 batch each)
 RESUME_RTOL = 1e-6
-TN_GATE_ARGS = ["--n-episodes", "16", "--bc-epochs", "1", "--rounds", "2", "--value-warmup-rounds", "1",
-                "--rollouts-per-round", "16", "--eval-rollouts", "16", "--max-steps", "8"]
-MAZE_PPO_GATE_ARGS = ["--n-chains", "20", "--bc-epochs", "1", "--rounds", "2", "--value-warmup-rounds", "1",
-                      "--rollouts-per-round", "16", "--eval-rollouts", "16"]
+TN_GATE_ARGS = ["--n-episodes", "8", "--bc-epochs", "1", "--rounds", "2", "--value-warmup-rounds", "1",
+                "--rollouts-per-round", "8", "--eval-rollouts", "8", "--max-steps", "8"]
+MAZE_PPO_GATE_ARGS = ["--n-chains", "10", "--bc-epochs", "1", "--rounds", "2", "--value-warmup-rounds", "1",
+                      "--rollouts-per-round", "8", "--eval-rollouts", "8"]
 MAZE_PPO_GATE_MOVES = 20  # 3w's maze episodes cut to 20 moves (the gate's env allows 100)
 
 
@@ -2082,18 +2104,12 @@ def phase_loops(config, device="cuda", maze_config=None) -> dict:
             f"per step {_fmt_counts(step_counts[0])}")
         check(rel <= RESUME_RTOL, f"offline loop resume: first step's loss {re['losses'][0]} vs {un['losses'][1]}")
         check(re["ls"] == (LOOP_STEPS + 1, LOOP_STEPS), f"resumed loop state {re['ls']}")
-        # the loop's first checkpoint write, timed; then the same modules' params alone
+        # the loop's first checkpoint write, timed (3i times the same seven modules' params alone)
         t_write, n_bytes = writes[0], _dir_bytes(os.path.join(ckpt_dir, "epoch_0"))
-        state = fresh_state()
-        t0 = time.perf_counter()
-        dump_modules(os.path.join(root, "timed_params"), modules(state), save_train_state=False)
-        t_params = time.perf_counter() - t0
-        p_bytes = _dir_bytes(os.path.join(root, "timed_params"))
         log(f"loops (3l): wrote the 7-module ILQL checkpoint with optimizer state ({n_bytes / 1e9:.3f} GB) in "
-            f"{t_write:.2f} s ({n_bytes / 1e9 / t_write:.3f} GB/s); params only ({p_bytes / 1e9:.3f} GB) in {t_params:.2f} s")
-        out.update(ckpt_write_s=t_write, ckpt_params_bytes=p_bytes, ckpt_params_write_s=t_params)
+            f"{t_write:.2f} s ({n_bytes / 1e9 / t_write:.3f} GB/s)")
+        out.update(ckpt_write_s=t_write)
         out.update(_path_counts("offline_loop_step", step_counts[0]))
-        del state
         shutil.rmtree(root)
         root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
         out.update(_online_loop(device, root, maze_config))
@@ -2232,8 +2248,8 @@ def phase_ppo_gates(device="cuda", extra=()) -> dict:
 
 # ---------------- slice 8: the Markov actors, online Markov ILQL, the chess gate ----------------
 
-MARKOV_B, MARKOV_TURNS, MARKOV_REPS = 512, 8, 3  # bench.py::bench_actor_markov's operating point
-MARKOV_PROFILED_STEPS = 4  # 3u: train steps under the profiler
+MARKOV_B, MARKOV_TURNS, MARKOV_REPS = 512, 8, 2  # bench.py::bench_actor_markov's operating point
+MARKOV_PROFILED_STEPS = 2  # 3u: train steps under the profiler
 MARKOV_VOCAB = 512
 MAZE_REWARDS, CHESS_REWARDS = {0.0, -1.0, -4.0}, {1.0, 0.0, -1.0}
 CHESS_GATE_ARGS = ["--train-pool", "64", "--eval-pool", "32", "--bc-batches", "20", "--ilql-batches", "20",
@@ -2331,7 +2347,7 @@ def phase_online_markov(device="cuda", config=None) -> dict:
     train_bsize=64). Per round: the rollout's launches (8 x 2L K1, 8 x 8 x
     2L K4; the two-trunk value-guided chess rollout at B=256), each step's (3L K1: the trained, target and next-window
     forwards; L K2/K3), a finite loss, base weights that move, rollout and
-    train wall time; then a rollout and four of a round's steps profiled."""
+    train wall time; then a rollout and two of a round's steps profiled."""
     config = config or markov_config()
     L = config.num_layers
     core = LMCore(config, device=device)
@@ -2390,7 +2406,7 @@ def phase_online_markov(device="cuda", config=None) -> dict:
         profile_run("online markov rollout", rollout, record[rolls[-1]]["s"])
         batch = markov_rollout_to_ilql_batch(record[rolls[-1]]["out"])
         step = make_ilql_train_step(core, ilql_config, ocfg.pad_token_id)
-        # four of the round's steps: the profiler's own cost grows with the
+        # MARKOV_PROFILED_STEPS of the round's steps: the profiler's own cost grows with the
         # launches it records (~2,300 per step)
         mb, steps = ocfg.train_bsize, record[rolls[-1] + 1: rolls[-1] + 1 + MARKOV_PROFILED_STEPS]
 
@@ -2433,7 +2449,7 @@ def phase_chess_gate(device="cuda", extra=()) -> dict:
 
 # ---------------- slice 9: the LM-oracle dialog stack ----------------
 
-DIALOG_B, DIALOG_TURNS = 64, 4  # 3d: episodes, env turns per oracle
+DIALOG_B, DIALOG_TURNS = 64, 3  # 3d: episodes, env turns per oracle
 DIALOG_MAX_LEN, DIALOG_NEW = 768, 48  # the dialog gates' policy prompts and new tokens
 ORACLE_INPUT, ORACLE_NEW = 256, 8  # lm_oracle.build_lm_twenty_questions_env's oracle calls
 T5_CHECK_LAYERS = 2  # 3d's card-vs-CPU T5 check: flan-t5-xl widths, 2 + 2 layers
@@ -2555,7 +2571,7 @@ def dialog_tokenizer():
     return train_bpe_for_task("twenty_questions", vocab_size=2048, n_episodes=200, seed=0)
 
 
-DIALOG_GATE_TURNS = 6  # 3e: 20Q episodes and Car-Dealer LM-buyer episodes cut to 6 turns
+DIALOG_GATE_TURNS = 3  # 3e: 20Q episodes and Car-Dealer LM-buyer episodes cut to 3 turns
 DIALOG_GATE_BALANCED_QA = 64  # 3e: the balanced oracle QA (~1,260 windows) cut to its first 64
 
 
@@ -2663,7 +2679,7 @@ def phase_dialog(device="cuda", asker_config=None, t5_config=None, decoder_oracl
     configuration, a GPT-2 asker against a flan-t5-xl oracle, then the same
     turns against the gates' decoder-oracle architecture at GPT-2-small
     width — in `BatchedTwentyQuestionsEnv`, DIALOG_B = 64 episodes,
-    DIALOG_TURNS = 4 env turns per oracle. The asker: GPT-2-small (d768 L12
+    DIALOG_TURNS = 3 env turns per oracle. The asker: GPT-2-small (d768 L12
     H12) over the 20Q task BPE, bf16 weights from a seed, sampled through
     `GenerationPolicy` over `LMServer` (prompts to 768 tokens, 48 new). The
     T5: flan_t5_xl()'s widths (d2048, d_kv 64, d_ff 5120, 24 + 24 layers, 32
@@ -2889,6 +2905,209 @@ def phase_dialog_gates(device="cuda", extra=()) -> dict:
     return out
 
 
+CLI_ARGS = ["--task", "wordle", "--algo", "ilql", "--model-size", "gpt2-small-real", "--tokenizer", "bpe",
+            "--n-data", "64", "--epochs", "1", "--train-bsize", "16", "--eval-rollouts", "8"]
+CLI_EXP = "cli"
+CLI_MODULES = ("base", "target_base", "q1_head", "q2_head", "v_head", "q1_target_head", "q2_target_head")
+DROPOUT_B, DROPOUT_T = 16, 160  # 3i's attention-dropout forward, card against CPU
+
+
+def _cli_hooks(record: dict):
+    """Wrap what `cli.train.main` and `cli.evaluate.main` call, to record
+    each ILQL step (its launches, loss and seconds), each guided serving
+    call (its seconds) and each checkpoint write. Returns the undo."""
+    from lmrl_gym_torch.algos import ilql as ilql_module
+
+    make, gfs, save = (ilql_module.make_ilql_train_step, ValueGuidedServer.generate_from_strs,
+                       loop_checkpoints.CheckpointManager.save)
+    device = record["device"]
+
+    def make_ilql_train_step(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(state, batch, generator=None):
+            before = _all_counts()
+            t0 = time.perf_counter()
+            state, loss, logs = step(state, batch, generator)
+            _sync(device)
+            record["steps"].append((time.perf_counter() - t0, tuple(b - a for a, b in zip(before, _all_counts())),
+                                    loss.item()))
+            return state, loss, logs
+
+        return timed
+
+    def generate_from_strs(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = gfs(self, *a, **kw)
+        _sync(device)
+        record["calls"].append(time.perf_counter() - t0)
+        record["actions"].append(list(out))
+        return out
+
+    def manager_save(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = save(self, *a, **kw)
+        record["saves"].append(time.perf_counter() - t0)
+        return out
+
+    ilql_module.make_ilql_train_step = make_ilql_train_step
+    ValueGuidedServer.generate_from_strs = generate_from_strs
+    loop_checkpoints.CheckpointManager.save = manager_save
+
+    def undo():
+        ilql_module.make_ilql_train_step = make
+        ValueGuidedServer.generate_from_strs = gfs
+        loop_checkpoints.CheckpointManager.save = save
+
+    return undo
+
+
+def phase_cli(device="cuda", config=None, dropout_config=None) -> dict:
+    """Phase 3i: the command line at full width. `cli.train.main` runs
+    CLI_ARGS: ILQL on Wordle at GPT-2-small over the task BPE with the full
+    50,257-id vocabulary (padded to 50,304) and the size's default dropout
+    (attention-probability dropout 0.1 among it), 64 behavior episodes, one
+    epoch of four B=16 steps, one eval of 8 value-guided games, and the
+    JAX package's checkpoint layout. Its launches are exact: none in the
+    trained steps (attention dropout takes the einsum route; the target
+    and next-window forwards train too), L K1 and 32·L K4 per guided
+    serving call of the eval. `cli.evaluate.main` then reads the checkpoint
+    (it infers ilql and decodes guided) and must reproduce the train CLI's
+    eval: every decoded action and the mean reward; `export_hf_pretrained` / `load_hf_pretrained` round-trip
+    the trained base with `transformers` and `safetensors` blocked, to
+    bit-identical logits; and one attention-dropout training forward
+    (B=16, T=160, f32, keep masks replayed) on the card is held against
+    the CPU. `config` / `dropout_config` replace GPT-2-small for a CPU
+    rehearsal."""
+    from lmrl_gym_torch.cli import evaluate as cli_evaluate
+    from lmrl_gym_torch.cli import train as cli_train
+    from lmrl_gym_torch.models import hf as hf_interop
+
+    argv = list(CLI_ARGS)
+    if config is not None:  # a rehearsal size
+        cli_train.MODEL_SIZES["rehearsal"] = lambda: config
+        argv[argv.index("gpt2-small-real")] = "rehearsal"
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    record = dict(device=device, steps=[], calls=[], actions=[], saves=[])
+    undo = _cli_hooks(record)
+    try:
+        t0 = time.perf_counter()
+        (state, loop_state), counts, s_train = _counted(
+            cli_train.main, argv + ["--save-dir", root, "--exp-name", CLI_EXP, "--device", device], device=device)
+        L = state.base.params.config.num_layers
+        n_calls, n_steps = len(record["calls"]), len(record["steps"])
+        want = _want(L, fwd=n_calls, dec=32 * n_calls)
+        check(n_steps == 4 and n_calls >= 1, f"cli (3i): {n_steps} steps, {n_calls} serving calls")
+        check(counts == want, f"cli (3i) train: {_fmt_counts(counts)}, want {want}")
+        zero = (0,) * len(COUNT_NAMES)
+        check(all(c == zero for _, c, _ in record["steps"]),
+              f"cli (3i): ILQL steps launched {[c for _, c, _ in record['steps']]}")
+        losses = [x for _, _, x in record["steps"]]
+        check(all(math.isfinite(x) for x in losses), f"cli (3i): losses {losses}")
+        run_dir = os.path.join(root, CLI_EXP)
+        for tag in ("best", "last"):
+            for name in CLI_MODULES:
+                check(os.path.exists(os.path.join(run_dir, tag, name, "params.msgpack")), f"cli (3i): no {tag}/{name}")
+            check(os.path.exists(os.path.join(run_dir, tag, "base", "config.json")), f"cli (3i): no {tag} config")
+            check(os.path.exists(os.path.join(run_dir, tag, "loop_state.pkl")), f"cli (3i): no {tag} loop state")
+        reward = loop_state.best_perf
+        check(math.isfinite(reward), f"cli (3i): eval reward {reward}")
+        step_s, call_s, save_s = sum(x for x, _, _ in record["steps"]), sum(record["calls"]), sum(record["saves"])
+        ckpt_gb = _dir_bytes(os.path.join(run_dir, "last")) / 1e9
+        log(f"cli (3i) train: {s_train:.2f} s: {n_steps} ILQL steps {step_s:.2f} s "
+            f"({[round(x, 3) for x, _, _ in record['steps']]}), eval {n_calls} guided calls {call_s:.2f} s, "
+            f"{len(record['saves'])} checkpoint writes {save_s:.2f} s ({ckpt_gb:.3f} GB each), the rest (BPE, "
+            f"data, init) {s_train - step_s - call_s - save_s:.2f} s; losses {[round(x, 4) for x in losses]}; "
+            f"eval reward {reward}; {_fmt_counts(counts)}")
+        out.update(_path_counts("cli_train", counts))
+        out.update(cli_train_s=s_train, cli_step_s=step_s / n_steps, cli_eval_s=call_s)
+
+        # the standalone evaluation of the same checkpoint
+        train_actions = list(record["actions"])
+        record["calls"].clear()
+        record["actions"].clear()
+        eval_argv = ["--task", "wordle", "--checkpoint", run_dir, "--tokenizer", f"bpe:{run_dir}/bpe.json",
+                     "--n-rollouts", "8", "--device", device]
+        results, counts, s_eval = _counted(cli_evaluate.main, eval_argv, device=device)
+        n_eval_calls = len(record["calls"])
+        want = _want(L, fwd=n_eval_calls, dec=32 * n_eval_calls)
+        check(counts == want, f"cli (3i) evaluate: {_fmt_counts(counts)}, want {want}")
+        eval_reward = results["rollouts"]["reward"]["mean"]
+        log(f"cli (3i) evaluate: {s_eval:.2f} s, {n_eval_calls} guided calls; reward {eval_reward} (train CLI's eval "
+            f"{reward}); {_fmt_counts(counts)}")
+        check(eval_reward == reward, f"cli (3i): evaluate reward {eval_reward} != the train CLI's eval {reward}")
+        check(record["actions"] == train_actions, "cli (3i): evaluate decoded other actions than the train CLI's eval")
+        out.update(_path_counts("cli_evaluate", counts))
+        out.update(cli_evaluate_s=s_eval)
+
+        # HF round trip of the trained base, with no transformers present
+        base = state.base.params
+        blocked = {m: sys.modules.get(m) for m in ("transformers", "safetensors")}
+        t0 = time.perf_counter()
+        try:
+            for m in blocked:
+                sys.modules[m] = None
+            hf_dir = os.path.join(root, "hf")
+            hf_interop.export_hf_pretrained(base, base.config, hf_dir)
+            # the activation dtype is the caller's choice: HF's config does not carry it
+            hf_config, loaded = hf_interop.load_hf_pretrained(hf_dir, device=device, dtype=base.config.dtype)
+        finally:
+            for m, mod in blocked.items():
+                if mod is None:
+                    sys.modules.pop(m, None)
+                else:
+                    sys.modules[m] = mod
+        s_hf = time.perf_counter() - t0
+        g = torch.Generator().manual_seed(3)
+        ids = torch.randint(0, hf_config.vocab_size, (4, 32), generator=g).to(device)
+        V = hf_config.vocab_size  # the padded vocab rows are stripped on export and zero-filled on import
+        with torch.no_grad():
+            same = torch.equal(base(ids)[0][..., :V], loaded(ids)[0][..., :V])
+        log(f"cli (3i) HF round trip: export + load {s_hf:.2f} s ({_dir_bytes(hf_dir) / 1e9:.3f} GB), logits over "
+            f"the {V}-id vocabulary bit-identical: {same}")
+        check(same and hf_config.padded_vocab_size == base.config.padded_vocab_size, "cli (3i): HF round trip logits")
+        del state, base, loaded
+    finally:
+        undo()
+        cli_train.MODEL_SIZES.pop("rehearsal", None)
+        shutil.rmtree(root, ignore_errors=True)
+    out.update(_dropout_card_vs_cpu(device, dropout_config))
+    return out
+
+
+def _dropout_card_vs_cpu(device, config=None) -> dict:
+    """One attention-dropout training forward (f32, embedding and residual
+    dropout 0, the keep masks drawn on the CPU at attn_pdrop and replayed)
+    on `device` against the CPU: relative RMS logit difference within
+    STEP_LOSS_RTOL, no K1 launch."""
+    cfg = (config or gpt2_small()).replace(dtype="float32", embd_pdrop=0.0, resid_pdrop=0.0)
+    b, t = (DROPOUT_B, DROPOUT_T) if config is None else (2, 16)
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (b, t), generator=g)
+    keeps = [torch.rand(b, cfg.num_heads, t, t, generator=g) < 1.0 - cfg.attn_pdrop for _ in range(cfg.num_layers)]
+    causal = torch.ones(t, t, dtype=torch.bool).tril()
+    share = torch.stack([k[:, :, causal] for k in keeps]).float().mean().item()
+    cpu_model = Transformer(cfg, device="cpu", seed=5)
+    model = copy.deepcopy(cpu_model).to(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        (logits, _, _), counts, s_card = _counted(model, ids.to(device), deterministic=False,
+                                                  attn_keep=[k.to(device) for k in keeps], device=device)
+        ref = cpu_model(ids, deterministic=False, attn_keep=keeps)[0]
+    rel = ((logits.cpu() - ref).double().norm() / ref.double().norm()).item()
+    plain = model(ids.to(device))[0].cpu()
+    moved = ((plain - ref).double().norm() / ref.double().norm()).item()
+    log(f"cli (3i) attention dropout (attn_pdrop {cfg.attn_pdrop}, f32, B={b} T={t}, masks replayed): card vs CPU "
+        f"relative RMS logit diff {rel:.2e} (tol {STEP_LOSS_RTOL}); keep share {share:.4f}; without dropout the "
+        f"logits move by {moved:.2e}; card forward {s_card:.3f} s, both {time.perf_counter() - t0:.2f} s; "
+        f"{_fmt_counts(counts)}")
+    check(rel <= STEP_LOSS_RTOL and moved > 10 * STEP_LOSS_RTOL, f"cli (3i): dropout forward card vs CPU {rel}")
+    check(counts == (0,) * len(COUNT_NAMES), f"cli (3i): the dropout forward launched {_fmt_counts(counts)}")
+    check(abs(share - (1.0 - cfg.attn_pdrop)) < 0.005, f"cli (3i): keep share {share}")
+    return dict(dropout_rel_err=rel, dropout_keep_share=share)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
@@ -2899,11 +3118,16 @@ def main() -> int:
         log(f"phase 1: {time.perf_counter() - t_start:.1f} s")
         t0 = time.perf_counter()
         errs = phase_kernel_checks()
+        log(f"phase 2 serving shapes: {time.perf_counter() - t0:.1f} s")
         for phase in (phase_bwd_checks, phase_path_checks):
+            t1 = time.perf_counter()
             for name, err in phase().items():
                 errs[name] = max(errs.get(name, 0.0), err)
+            log(f"{phase.__name__}: {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
         shapes = phase_main_path_shapes()
         shapes.update(phase_train_shapes())
+        log(f"main-path and train-step shape timings: {time.perf_counter() - t1:.1f} s")
         log(f"phases 2, 2p: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         launches = phase_slice()
@@ -2940,7 +3164,11 @@ def main() -> int:
             log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         log(f"phases 3d, 3e: {time.perf_counter() - t_slice9:.1f} s")
         t0 = time.perf_counter()
+        launches.update(phase_cli())
+        log(f"phase 3i: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         phase_card_vs_cpu(launches["base"], launches["config"])
+        log(f"phase 4 serving: {time.perf_counter() - t0:.1f} s")
         phase_train_card_vs_cpu(launches["config"])
         log(f"phase 4: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as e:
@@ -2993,7 +3221,7 @@ def main() -> int:
                      "ppo_gate_text_nav", "ppo_gate_maze", "markov_maze", "markov_chess", "markov_guided",
                      "online_markov_round", "online_markov_step", "chess_gate", "dialog_asker_turn",
                      "dialog_oracle_turn", "dialog_gate_car_dealer", "dialog_gate_dialog_ilql",
-                     "dialog_gate_twenty_questions"):
+                     "dialog_gate_twenty_questions", "cli_train", "cli_evaluate"):
             if f"{entry['name']}_{path}" in launches:
                 entry[f"launches_{path}"] = launches[f"{entry['name']}_{path}"]
             if f"{entry['name']}_tc_{path}" in launches:

@@ -139,9 +139,10 @@ class ValueGuidedServer:
         max_input_length: int,
         sampling: SamplingConfig,
         generator: Optional[torch.Generator] = None,
+        gumbel: Optional[torch.Tensor] = None,  # [max_new_tokens, B, V] replayed noise
     ) -> List[str]:
         ids, mask = _encode_prompts(self.tokenizer, prompts, max_input_length, self.core.device)
-        tokens, token_mask = self.generate(params, ids, mask, sampling, generator)
+        tokens, token_mask = self.generate(params, ids, mask, sampling, generator, gumbel)
         return _decode(self.tokenizer, tokens, token_mask)
 
     def generate_legal(

@@ -1,11 +1,15 @@
-"""Task registry, the maze, chess, text-nav and dialog parts: the port of
-`transitions_to_chain`, `build_maze_env`, `generate_maze_chains`,
-`build_chess_endgame_env`, `generate_chess_endgame_chains`,
-`build_chess_env`, `generate_chess_chains`, `build_text_nav_env`,
-`generate_text_nav_chains` and the Twenty-Questions, Guess-My-City and
-Car-Dealer builders, data-gen policies and chain generators from
-`lmrl_gym_tpu/cli/tasks.py` (host only), with the `Task` record and a
-`TASKS` table that holds the tasks ported so far.
+"""Task registry: the port of `lmrl_gym_tpu/cli/tasks.py` (host only).
+
+Each task provides the same capabilities behind one interface consumed by
+`cli/train.py` and `cli/evaluate.py`:
+
+- build_env(): the TextEnv used for eval rollouts;
+- generate_chains(n, seed): scripted-policy behavior data as
+  TextTrajectoryChains;
+- max_length: the default training window.
+
+`TASKS` has the JAX package's key set, and every builder and generator
+gives the JAX package's strings.
 """
 from __future__ import annotations
 
@@ -128,6 +132,81 @@ def generate_maze_chains(
             history = obs + (Text(action, True),)
             obs, reward, done = env.step(history)
             steps.append((history[0].text, action, reward, done))
+        if not done:
+            steps[-1] = steps[-1][:3] + (True,)
+        chains.append(_chain_from_markov_steps(steps))
+    return chains
+
+
+# ---------------- wordle ----------------
+
+
+def build_wordle_env(vocab_file: Optional[str] = None) -> TextEnv:
+    from lmrl_gym_torch.envs.wordle.env import ReformatWordleEnv, WordleEnv
+    from lmrl_gym_torch.envs.wordle.vector import WordleVocab
+
+    vocab = WordleVocab.from_file(vocab_file) if vocab_file else WordleVocab.from_file()
+    return ReformatWordleEnv(WordleEnv(vocab))
+
+
+def generate_wordle_chains(n: int, seed: int, prob_smart: float = 0.66) -> List[TextTrajectoryChain]:
+    from lmrl_gym_torch.envs.wordle.data import generate_trajectories, trajectories_to_chains
+    from lmrl_gym_torch.envs.wordle.policies import MixturePolicy, RandomMixturePolicy, StartWordPolicy
+    from lmrl_gym_torch.envs.wordle.vector import WordleVocab
+
+    vocab = WordleVocab.from_file()
+    rng = random.Random(seed)
+    policy = MixturePolicy(
+        0.33,
+        StartWordPolicy(rng=rng),
+        RandomMixturePolicy(prob_smart, vocab, rng=rng),
+        rng=rng,
+    )
+    return trajectories_to_chains(generate_trajectories(n, policy, vocab, seed=seed))
+
+
+# ---------------- partially observed maze ----------------
+
+
+def build_maze_partial_env(max_steps: int = 100, last_k: int = 40) -> TextEnv:
+    """Partially observed maze: walls-only observations (the reference's
+    partially_observed script family; describe_observation_only_walls,
+    maze/env/env.py:69-81). History window carries the missing state."""
+    from lmrl_gym_torch.envs.maze.env import MazeEnv, describe_observation_only_walls
+    from lmrl_gym_torch.envs.maze.grids import double_t_maze
+
+    return MazeEnv(
+        maze=double_t_maze(),
+        valid_goals=np.asarray([(8, 6)]),
+        max_steps=max_steps,
+        describe_function=describe_observation_only_walls,
+        last_k=last_k,
+    )
+
+
+def generate_maze_partial_chains(n: int, seed: int, p_optimal: float = 0.7) -> List[TextTrajectoryChain]:
+    """Optimal/random mixture on the walls-only env; whole rolling window
+    per step (non-Markov: position must be inferred from move history)."""
+    from lmrl_gym_torch.envs.maze.grids import ACTION_STRS, double_t_maze, maze_solver
+
+    maze = double_t_maze()
+    solver = maze_solver(maze, (8, 6))
+    rng = random.Random(seed)
+    env = build_maze_partial_env()
+    chains = []
+    for i in range(n):
+        obs = env.reset(seed=seed * 100003 + i)
+        steps = []
+        done = False
+        while not done and len(steps) < 40:
+            if rng.random() < p_optimal and tuple(env.position) in solver:
+                action = solver[tuple(env.position)]
+            else:
+                action = rng.choice(ACTION_STRS)
+            history = obs + (Text(action, True),)
+            new_obs, reward, done = env.step(history)
+            steps.append((history[0].text, action, reward, done))
+            obs = new_obs
         if not done:
             steps[-1] = steps[-1][:3] + (True,)
         chains.append(_chain_from_markov_steps(steps))
@@ -398,6 +477,10 @@ def generate_car_dealer_chains(n: int, seed: int) -> List[TextTrajectoryChain]:
 
 TASKS: Dict[str, Task] = {
     "maze": Task("maze", build_maze_env, generate_maze_chains, max_length=192),
+    "maze_partial": Task(
+        "maze_partial", build_maze_partial_env, generate_maze_partial_chains, max_length=384
+    ),
+    "wordle": Task("wordle", build_wordle_env, generate_wordle_chains, max_length=160),
     "chess": Task("chess", build_chess_env, generate_chess_chains, max_length=160),
     "chess_endgames": Task("chess_endgames", build_chess_endgame_env, generate_chess_endgame_chains, max_length=160),
     "text_nav": Task("text_nav", build_text_nav_env, generate_text_nav_chains, max_length=512),

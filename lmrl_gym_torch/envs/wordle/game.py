@@ -53,6 +53,24 @@ def word_satisfies(knowledge: np.ndarray, word: str) -> bool:
     return True
 
 
+def filtered_mask(knowledge: np.ndarray, vocab: WordleVocab) -> np.ndarray:
+    """[V] bool: `word_satisfies` over the whole vocab, vectorized (mirrors
+    vector.consistent_mask in numpy)."""
+    chars = vocab.chars  # [V,5]
+    has = vocab.has_char  # [V,26]
+    all_possible = (knowledge == POSSIBLE).all(axis=1)  # [26]
+    all_nothere = (knowledge == NOT_HERE).all(axis=1)
+    w_match = np.eye(ALPHA, dtype=bool)[chars]  # [V,5,26]
+    w_match = np.transpose(w_match, (0, 2, 1))  # [V,26,5]
+    here = knowledge == HERE
+    nothere = knowledge == NOT_HERE
+    here_viol = (here[None] & ~w_match).any(axis=2)  # [V,26]
+    nothere_viol = (nothere[None] & w_match).any(axis=2)
+    mixed_ok = ~here_viol & ~nothere_viol & has
+    ok = np.where(all_possible[None], True, np.where(all_nothere[None], ~has, mixed_ok))
+    return ok.all(axis=1)
+
+
 def apply_guess(knowledge: np.ndarray, guess: str, target: str) -> np.ndarray:
     """Sequential per-position knowledge update (game.py:82-92)."""
     out = knowledge.copy()
@@ -106,7 +124,7 @@ class WordleGame:
         self.rng = rng if rng is not None else random.Random()
         self.bad_word_reward = bad_word_reward
         if filtered is None:
-            filtered = [w for w in vocab.words if word_satisfies(self.knowledge, w)]
+            filtered = [w for w, ok in zip(vocab.words, filtered_mask(self.knowledge, vocab)) if ok]
         self.filtered = filtered
 
     def _is_valid(self, action: str) -> bool:

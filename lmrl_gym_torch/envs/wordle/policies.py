@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from lmrl_gym_torch.envs.base import TextPolicy
-from lmrl_gym_torch.envs.wordle.game import word_satisfies
+from lmrl_gym_torch.envs.wordle.game import filtered_mask as _filtered_mask
 from lmrl_gym_torch.envs.wordle.vector import (
     ALPHA,
     HERE,
@@ -89,24 +89,6 @@ def state_from_history(
         ):
             knowledge = apply_feedback(knowledge, guess, feedbacks[i])
     return knowledge, actions
-
-
-def _filtered_mask(knowledge: np.ndarray, vocab: WordleVocab) -> np.ndarray:
-    """[V] bool consistency, vectorized (mirrors vector.consistent_mask
-    in numpy)."""
-    chars = vocab.chars  # [V,5]
-    has = vocab.has_char  # [V,26]
-    all_possible = (knowledge == POSSIBLE).all(axis=1)  # [26]
-    all_nothere = (knowledge == NOT_HERE).all(axis=1)
-    w_match = np.eye(ALPHA, dtype=bool)[chars]  # [V,5,26]
-    w_match = np.transpose(w_match, (0, 2, 1))  # [V,26,5]
-    here = knowledge == HERE
-    nothere = knowledge == NOT_HERE
-    here_viol = (here[None] & ~w_match).any(axis=2)  # [V,26]
-    nothere_viol = (nothere[None] & w_match).any(axis=2)
-    mixed_ok = ~here_viol & ~nothere_viol & has
-    ok = np.where(all_possible[None], True, np.where(all_nothere[None], ~has, mixed_ok))
-    return ok.all(axis=1)
 
 
 class _StateCache:

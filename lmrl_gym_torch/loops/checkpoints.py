@@ -1,6 +1,5 @@
 """Checkpoint layout and loop-state persistence: the port of
-`lmrl_gym_tpu/loops/checkpoints.py` (less `export_hf_format`, which comes
-with the HF interop).
+`lmrl_gym_tpu/loops/checkpoints.py`.
 
 A checkpoint directory holds one subdir per module (ILQL: base/,
 target_base/, q1_head/, q2_head/, v_head/, q1_target_head/,
@@ -197,3 +196,12 @@ class CheckpointManager:
                 if os.path.exists(old):
                     shutil.rmtree(old)
         return ckpt_dir
+
+
+def export_hf_format(params: Any, config: dict, out_dir: str) -> None:
+    """Export params + config for downstream HF-style consumption: msgpack
+    weights (`flax_model.msgpack`, under the flax key paths for a port
+    module; the JAX package's `load_pytree` reads it) and `config.json`."""
+    create_path(out_dir)
+    save_pytree(module_tree(params), os.path.join(out_dir, "flax_model.msgpack"))
+    save_config(config, os.path.join(out_dir, "config.json"))

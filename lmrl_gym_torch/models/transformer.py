@@ -32,15 +32,18 @@ Training (`deterministic=False`) applies embedding and residual dropout
 with masks drawn from a `torch.Generator` the caller passes, as the flax
 module does with its dropout rng; with grad mode on, the no-cache
 attention goes through `flash_attention`'s autograd function (K1 forward,
-K2 + K3 backward). Attention-probability dropout (`attn_pdrop > 0`) took
-the einsum path in the JAX package, never a kernel; the port refuses it.
+K2 + K3 backward). Attention-probability dropout (`attn_pdrop > 0` in
+training) takes the JAX package's einsum path instead, as the JAX module
+does (it leaves flash and the ring there, never running this dropout in a
+kernel): `attention_with_dropout`, plain PyTorch, with plain autograd for
+its backward, so such a step launches no K1, K2 or K3.
 """
 from __future__ import annotations
 
 import functools
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,12 +96,41 @@ class KVCache:
         return KVCache(self.k, self.v, self.index + n)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None, keep: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """flax `nn.Dropout(rate, deterministic=False)`: keep each element with
     probability 1 − rate (uniform draw < 1 − rate) and scale it by
-    1/(1 − rate)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+    1/(1 − rate). `keep` replays another run's mask in place of a draw
+    from `generator`."""
+    if keep is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep.to(x.device), x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def attention_with_dropout(
+    q: torch.Tensor,  # [B, H, T, Dh]
+    k: torch.Tensor,  # [B, H, T, Dh]
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],  # [B, T] additive: 0 visible, _MASK_BIAS masked; None = all visible
+    sm_scale: float,
+    dtype: torch.dtype,
+    drop: Callable[[torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """The JAX package's einsum attention with dropout on the probabilities
+    (`lmrl_gym_tpu/models/transformer.py:236-243`): scores q·kᵀ with f32
+    products and sums (`preferred_element_type=f32`: q and k upcast, which
+    is exact, and multiplied in f32), times 1/√Dh; causal and padding
+    masked entries set to f32's finfo.min; softmax in f32, cast to `dtype`;
+    `drop`; then P·V in `dtype`."""
+    T, S = q.shape[2], k.shape[2]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    visible = torch.ones((T, S), dtype=torch.bool, device=q.device).tril()[None, None]
+    if bias is not None:
+        visible = visible & (bias == 0)[:, None, None, :]
+    scores = scores.masked_fill(~visible, torch.finfo(torch.float32).min)
+    probs = drop(torch.softmax(scores, dim=-1).to(dtype))
+    return torch.matmul(probs, v.to(dtype))
 
 
 def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -171,6 +203,7 @@ class Attention(nn.Module):
         position_ids: torch.Tensor,  # [B, T]
         layer_cache: Optional[Tuple[torch.Tensor, torch.Tensor, int]],  # (k, v, index)
         drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,  # residual dropout
+        attn_drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,  # probability dropout (training)
     ) -> torch.Tensor:
         cfg = self.config
         B, T, D = x.shape
@@ -189,7 +222,9 @@ class Attention(nn.Module):
             k = apply_rotary(k, position_ids, rd, cfg.rotary_base, cfg.rotary_interleaved)
 
         sm_scale = 1.0 / math.sqrt(Dh)
-        if layer_cache is None:
+        if layer_cache is None and attn_drop is not None:
+            out = attention_with_dropout(q, k, v, bias, sm_scale, dtype, attn_drop)
+        elif layer_cache is None:
             out = flash_attention(q, k, v, bias, causal=True, sm_scale=sm_scale)
         else:
             ck, cv, index = layer_cache  # [B,H,T_max,Dh], written in place
@@ -287,9 +322,9 @@ class Block(nn.Module):
             self.ln_2 = _norm(config, device, dtype)
         self.mlp = MLP(config, device, dtype)
 
-    def forward(self, x, bias, position_ids, layer_cache, drop=None):
+    def forward(self, x, bias, position_ids, layer_cache, drop=None, attn_drop=None):
         h = self.ln_1(x)
-        attn_out = self.attn(h, bias, position_ids, layer_cache, drop)
+        attn_out = self.attn(h, bias, position_ids, layer_cache, drop, attn_drop)
         if self.config.parallel_ffn:
             # GPT-J: mlp reads the same normed input; one residual add
             return x + attn_out + self.mlp(h, drop)
@@ -343,15 +378,16 @@ class Transformer(nn.Module):
         cache: Optional[KVCache] = None,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,  # dropout masks when training
+        attn_keep: Optional[Sequence[torch.Tensor]] = None,  # replayed attention keep masks, one per layer
     ):
+        """`attn_keep` replays the attention-probability keep masks (bool
+        [B, H, T, T] per layer, True = kept) in place of draws from
+        `generator`; it applies only where that dropout runs (training
+        with `attn_pdrop > 0`, no cache)."""
         cfg = self.config
+        attn_dropout = not deterministic and cfg.attn_pdrop > 0
         train_drop = not deterministic and max(cfg.embd_pdrop, cfg.resid_pdrop) > 0
-        if not deterministic and cfg.attn_pdrop > 0:
-            raise NotImplementedError(
-                "attention-probability dropout (attn_pdrop > 0) in training is not ported: the JAX package "
-                "runs it on its einsum path, never a kernel; set attn_pdrop=0"
-            )
-        if train_drop and generator is None:
+        if (train_drop or (attn_dropout and attn_keep is None)) and generator is None:
             raise ValueError("dropout in training (deterministic=False) draws its masks from `generator`; pass one")
         B, T = input_ids.shape
         dtype = torch_dtype(cfg.dtype)
@@ -375,7 +411,11 @@ class Transformer(nn.Module):
 
         for i, block in enumerate(self.h):
             layer_cache = (cache.k[i], cache.v[i], start) if cache is not None else None
-            x = block(x, bias, position_ids, layer_cache, drop)
+            attn_drop = None
+            if attn_dropout and cache is None:
+                attn_drop = functools.partial(dropout, rate=cfg.attn_pdrop, generator=generator,
+                                              keep=None if attn_keep is None else attn_keep[i])
+            x = block(x, bias, position_ids, layer_cache, drop, attn_drop)
         x = self.ln_f(x)
 
         if cfg.tie_word_embeddings:

@@ -1,0 +1,8 @@
+"""Train cql on car_dealer — wrapper over the port's unified CLI
+(`python -m lmrl_gym_torch.scripts.car_dealer.train_cql [flags]`)."""
+import sys
+
+from lmrl_gym_torch.cli.train import main
+
+if __name__ == "__main__":
+    main(["--task", "car_dealer", "--algo", "cql"] + sys.argv[1:])

@@ -1,0 +1,8 @@
+"""Train ppo on chess — wrapper over the port's unified CLI
+(`python -m lmrl_gym_torch.scripts.chess.train_ppo [flags]`)."""
+import sys
+
+from lmrl_gym_torch.cli.train import main
+
+if __name__ == "__main__":
+    main(["--task", "chess", "--algo", "ppo"] + sys.argv[1:])

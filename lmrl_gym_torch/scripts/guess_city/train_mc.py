@@ -1,0 +1,8 @@
+"""Train mc on guess_city — wrapper over the port's unified CLI
+(`python -m lmrl_gym_torch.scripts.guess_city.train_mc [flags]`)."""
+import sys
+
+from lmrl_gym_torch.cli.train import main
+
+if __name__ == "__main__":
+    main(["--task", "guess_city", "--algo", "mc"] + sys.argv[1:])

@@ -1,0 +1,8 @@
+"""Train filtered_bc on text_nav — wrapper over the port's unified CLI
+(`python -m lmrl_gym_torch.scripts.text_nav.train_filtered_bc [flags]`)."""
+import sys
+
+from lmrl_gym_torch.cli.train import main
+
+if __name__ == "__main__":
+    main(["--task", "text_nav", "--algo", "filtered_bc"] + sys.argv[1:])

@@ -1,0 +1,8 @@
+"""Train ilql on twenty_questions — wrapper over the port's unified CLI
+(`python -m lmrl_gym_torch.scripts.twenty_questions.train_ilql [flags]`)."""
+import sys
+
+from lmrl_gym_torch.cli.train import main
+
+if __name__ == "__main__":
+    main(["--task", "twenty_questions", "--algo", "ilql"] + sys.argv[1:])

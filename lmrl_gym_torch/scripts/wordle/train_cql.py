@@ -1,0 +1,8 @@
+"""Train cql on wordle — wrapper over the port's unified CLI
+(`python -m lmrl_gym_torch.scripts.wordle.train_cql [flags]`)."""
+import sys
+
+from lmrl_gym_torch.cli.train import main
+
+if __name__ == "__main__":
+    main(["--task", "wordle", "--algo", "cql"] + sys.argv[1:])

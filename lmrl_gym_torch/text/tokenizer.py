@@ -1,9 +1,10 @@
-"""Byte-level tokenizer: the port's own copy of
-`lmrl_gym_tpu/text/tokenizer.py::ByteTokenizer` (token id == byte value,
-specials appended after 255), so the two packages tokenize identically."""
+"""Tokenizers: the port's own copy of `lmrl_gym_tpu/text/tokenizer.py`.
+`ByteTokenizer` (token id == byte value, specials appended after 255)
+tokenizes as the JAX package's does; `load_tokenizer` resolves the same
+specs, and `newline_id` gives the same stop token."""
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 
 class ByteTokenizer:
@@ -41,3 +42,33 @@ class ByteTokenizer:
         if isinstance(text, str):
             return {"input_ids": self.encode(text)}
         return {"input_ids": [self.encode(t) for t in text]}
+
+
+def newline_id(tokenizer) -> int:
+    """Token id that ends an action line (generation stop condition)."""
+    return getattr(tokenizer, "newline_token_id", ord("\n"))
+
+
+def load_tokenizer(name_or_path: Optional[str] = None):
+    """Resolve a tokenizer spec:
+
+    - None / "byte" → ByteTokenizer
+    - "bpe:<path>"  → saved in-repo BPE vocab (text/bpe.py)
+    - anything else → locally cached HF tokenizer (`transformers`, imported
+      here, local files only), ByteTokenizer fallback
+    """
+    if name_or_path is None or name_or_path == "byte":
+        return ByteTokenizer()
+    if name_or_path.startswith("bpe:"):
+        from lmrl_gym_torch.text.bpe import BPETokenizer
+
+        return BPETokenizer.load(name_or_path[len("bpe:"):])
+    try:
+        from transformers import AutoTokenizer
+
+        tok = AutoTokenizer.from_pretrained(name_or_path, local_files_only=True)
+        if tok.pad_token is None:
+            tok.pad_token = tok.eos_token
+        return tok
+    except Exception:
+        return ByteTokenizer()

@@ -150,3 +150,53 @@ def test_dialog_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
             make()
     core, _, params = lm_oracle.load_oracle(str(tmp_path), device="cpu")
     assert core.device.type == "cpu" and next(params.parameters()).device.type == "cpu"
+
+
+def test_port_imports_without_transformers():
+    """The HF interop and the CLIs need neither `transformers` nor
+    `safetensors` to import (the card's machine has neither); only
+    `load_tokenizer` reaches for `transformers`, inside the call, for an HF
+    tokenizer name. No port file imports them at module level."""
+    blocked = FORBIDDEN + ("transformers", "safetensors")
+    mods = _port_modules() + ["chip_smoke"]
+    code = (
+        "import sys\n"
+        + "".join(f"sys.modules[{m!r}] = None\n" for m in blocked)
+        + f"sys.path.insert(0, {ROOT!r})\n"
+        + "import importlib\n"
+        + f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+        + "from lmrl_gym_torch.text.tokenizer import ByteTokenizer, load_tokenizer\n"
+        + "assert isinstance(load_tokenizer('gpt2'), ByteTokenizer)\n"
+        + "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    for path in _python_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in tree.body:  # module-level statements only
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("transformers", "safetensors"), f"{path} imports {name}"
+
+
+def test_cli_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
+    """`cli.train` and `cli.evaluate` without `--device cpu` refuse a host
+    with no CUDA device; with it they run on the CPU."""
+    from lmrl_gym_torch.cli import evaluate, train
+
+    argv = ["--task", "maze", "--algo", "bc", "--n-data", "1", "--epochs", "1", "--no-eval", "--save-dir",
+            str(tmp_path), "--exp-name", "run"]
+    train.main(argv + ["--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    eval_argv = ["--task", "maze", "--checkpoint", str(tmp_path / "run"), "--n-rollouts", "1"]
+    for make in (lambda: train.main(argv), lambda: evaluate.main(eval_argv)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -1,5 +1,5 @@
 """The port's training forward: `LMCore.forward(train=True)`, dropout in the
-trunk and the MLP head, and the refusal of attention-probability dropout.
+trunk and the MLP head, and the route attention-probability dropout takes.
 
 With dropout rates 0 the training forward computes the inference function
 and must match the JAX package's `train=True` forward (1e-4 abs/rel, f32,
@@ -21,6 +21,7 @@ from lmrl_gym_torch.models.config import tiny_test_config as ttiny
 from lmrl_gym_torch.models.convert import params_from_jax
 from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
 from lmrl_gym_torch.models.interface import LMCore as TCore
+from lmrl_gym_torch.models import transformer as tmod
 from lmrl_gym_torch.models.transformer import Transformer, dropout
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -72,11 +73,33 @@ def test_trunk_dropout_follows_the_generator():
 
 
 def test_attention_dropout_in_training_is_refused():
+    """(Its name kept from when the port refused this dropout.) Training
+    with attn_pdrop > 0 takes the einsum route, `attention_with_dropout`,
+    drawing its masks from the generator; inference ignores the rate."""
     model = Transformer(ttiny(attn_pdrop=0.1), device="cpu")
     ids = torch.from_numpy(_ids()).long()
-    with pytest.raises(NotImplementedError, match="attn_pdrop"):
-        model(ids, deterministic=False, generator=torch.Generator())
-    model(ids)  # inference ignores every dropout rate
+    with pytest.raises(ValueError, match="generator"):
+        model(ids, deterministic=False)
+    routes = []
+    orig = tmod.attention_with_dropout
+
+    def spy(*a, **kw):
+        routes.append(1)
+        return orig(*a, **kw)
+
+    tmod.attention_with_dropout = spy
+    try:
+        a = model(ids, deterministic=False, generator=torch.Generator().manual_seed(0))[0]
+        b = model(ids, deterministic=False, generator=torch.Generator().manual_seed(0))[0]
+        c = model(ids, deterministic=False, generator=torch.Generator().manual_seed(1))[0]
+        assert len(routes) == 3 * model.config.num_layers
+        ref = model(ids)[0]  # inference ignores every dropout rate
+        assert len(routes) == 3 * model.config.num_layers
+    finally:
+        tmod.attention_with_dropout = orig
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.allclose(a, c) and not torch.allclose(a, ref)
+    torch.testing.assert_close(model(ids, deterministic=True, generator=torch.Generator())[0], ref, rtol=0, atol=0)
 
 
 def test_mlp_head_dropout_only_in_training():
