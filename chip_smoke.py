@@ -44,7 +44,7 @@ Phases, each of which exits non-zero on failure:
    448), and the tensor-core variants at Dh 32 and 48 in bf16;
 3. serving at full width: value-guided Wordle serving with GPT-2-small
    (vocab 50,257 padded to 50,304), bf16 weights from a seed, two trunks,
-   twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and three
+   twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and two
    timed `rollout_wordle`s, each with the kernels' launch counts (every
    flash_fwd launch the tensor-core variant) and the rollout's invariants
    checked, and one more under torch.profiler for the
@@ -54,7 +54,7 @@ Phases, each of which exits non-zero on failure:
    operating point: the ILQL train step on GPT-2-small (f32 parameters,
    bf16 activations), twin MLP Q heads (hidden 1536, out 50,304) and a V
    head, a separate target base, AdamW, B=32, T=160, next window 16 — one
-   warm-up and ten timed steps, each with its launch counts (36 flash_fwd,
+   warm-up and five timed steps, each with its launch counts (36 flash_fwd,
    12 flash_bwd_dq, 12 flash_bwd_dkv, every launch the tensor-core
    variant) and a finite loss checked, then one more under
    torch.profiler; then three BC steps on the same trunk (12/12/12
@@ -72,7 +72,7 @@ Phases, each of which exits non-zero on failure:
    torch.profiler;
 3g. the port's Wordle ILQL gate (`lmrl_gym_torch/scripts/
    wordle_ilql_gate.py`) at its own width (d256, L4, H4, byte vocab 259
-   padded to 320) and a cut budget (25 BC, 25 %BC, 25 ILQL steps, eval
+   padded to 320) and a cut budget (15 BC, 15 %BC, 15 ILQL steps, eval
    batch 512, no OptimalPolicy bound): every stage runs, its launch counts
    are the budget's, and every return is finite and in [-6, 0];
 3s. legal-set and text-env serving on the phase-3 weights: a
@@ -83,7 +83,7 @@ Phases, each of which exits non-zero on failure:
    and 240 decode_attn launches per turn; then `LMServer.generate_from_strs`
    answers 4 prompts;
 3m. the MC-returns train step at phase 3t's operating point (one MLP Q
-   head): one warm-up, five timed steps with exact launch counts (12 / 12 /
+   head): one warm-up, three timed steps with exact launch counts (12 / 12 /
    12, tensor cores) and finite losses, one profiled step; then one
    full-width f32 step on the card against the CPU (as phase 4's ILQL
    step);
@@ -131,7 +131,7 @@ Phases, each of which exits non-zero on failure:
    GPT-2-small over a 512-token vocab, bf16 weights from a seed,
    `rollout_markov` through `make_lm_step_fn`, B=512, 8 turns, on the maze
    (double_t_maze, 8 moves) and KQ-K chess (FEN, 8 moves): one warm-up and
-   two timed rollouts each with exact launches (K1 8 x 12 = 96; K4
+   one timed rollout each with exact launches (K1 8 x 12 = 96; K4
    8 x 11 x 12 = 1,056 maze, 8 x 8 x 12 = 768 chess), turns that never come
    back to life, rewards in {0, -1, -4} / {1, 0, -1} and every chess
    frame's FEN valid for the port's engine, env-steps/s, one rollout each
@@ -152,7 +152,7 @@ Phases, each of which exits non-zero on failure:
    prompts to 768 tokens, 48 new) against a flan-t5-xl-width T5 oracle
    (d2048, 24 + 24 layers, 32 heads, gated-gelu, untied; bf16 weights from
    a seed; `Seq2SeqServer`, 256-token right-padded encoder inputs, 8 new
-   tokens, greedy) in `BatchedTwentyQuestionsEnv`, B=64, 3 env turns; then
+   tokens, greedy) in `BatchedTwentyQuestionsEnv`, B=64, 2 env turns; then
    the same turns against a GPT-2-small decoder oracle (`LMServer`); per
    turn exact launches (asker 12 K1 and 576 K4; decoder oracle 12 and 96;
    the T5 none), every answer 'Yes.' or 'No.', every live history one
@@ -179,6 +179,15 @@ Phases, each of which exits non-zero on failure:
    `load_hf_pretrained` with `transformers` and `safetensors` blocked,
    to bit-identical logits; one attention-dropout training forward (f32,
    B=16, T=160, keep masks replayed) on the card against the CPU;
+3x. the sharded code in a one-rank NCCL group (slice 11): phase 3t's ILQL
+   step through `load_mesh((1, 1, 1))` and `shard_train_state` (FSDP2 on
+   all seven modules) beside the unsharded step from the same weights and
+   batch, launches exact (36 / 12 / 12, tensor cores), the largest loss
+   and parameter difference printed (held to 1e-6), both steps' times and
+   device busy time, the sharded step's NCCL kernels and FSDP2 events; the
+   V head's sharded train-state write byte-identical to the unsharded
+   write and its stream-sharded read; ring attention over a one-rank sp
+   mesh at the Text-Nav windows' shapes against K1 (`phase_sharded`);
 4. the same full-width serving weights at B=4 on the card (kernels, bf16)
    against the CPU (plain path, f32): header prefill plus 3 decode steps;
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
@@ -336,13 +345,13 @@ GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 2.0**-6)}
 # card (bf16 weights/activations, kernels) vs CPU (f32, plain path) logits
 # after 12 layers: bf16 keeps ~3 significant digits per op, logits ~ ±3
 LOGIT_TOL = 0.1
-ROLLOUT_REPS = 3  # timed rollouts; the median is reported beside min and max
+ROLLOUT_REPS = 2  # timed rollouts; the median is reported beside min and max
 ONLINE_ROUNDS = 2  # 3o's rounds (the config's default is 4)
 SPIN_CYCLES = 10_000_000  # cuda_ms's head start for the host: ~5 ms at the H100's 1.98 GHz boost
 PROFILER_TRIES = 3  # torch.profiler now and then records no device event on the card's machine
 # training: bench.py::bench_ilql_real_vocab's operating point
 TRAIN_B, TRAIN_T, NEXT_T = 32, 160, 16
-TRAIN_REPS = 10
+TRAIN_REPS = 5
 PAD_ID = 50256  # as bench.py passes it (no batch token is a pad)
 # card vs CPU ILQL step in f32 at full width: TF32 is off, so only the
 # summation order differs (~1e-6 relative per op)
@@ -1292,7 +1301,7 @@ def phase_online(config) -> dict:
     return out
 
 
-GATE_STEPS = 25  # 3g: updates per stage (BC, %BC, ILQL), one eval at the end
+GATE_STEPS = 15  # 3g: updates per stage (BC, %BC, ILQL), one eval at the end
 GATE_ARGS = ["--bc-steps", str(GATE_STEPS), "--pbc-steps", str(GATE_STEPS), "--ilql-steps", str(GATE_STEPS),
              "--eval-every", str(GATE_STEPS), "--eval-batch", "512", "--optimal-episodes", "0"]
 GATE_LAYERS = 4  # the gate's default --layers
@@ -1554,7 +1563,7 @@ def phase_train_card_vs_cpu(config) -> None:
 
 # ---------------- slice 6: MC, CQL, PPO, reranking, the maze gate ----------------
 
-SLICE6_REPS = 5  # timed steps of the MC and CQL steps (after one warm-up)
+SLICE6_REPS = 3  # timed steps of the MC and CQL steps (after one warm-up)
 PPO_EPISODES, PPO_BSIZE, PPO_MAX_STEPS = 32, 16, 8  # maze episodes cut to 8 moves (+ the failure turn)
 MAZE_GATE_ARGS = ["--n-chains", "50", "--bc-epochs", "1", "--ilql-epochs", "2", "--lr-warmdown", "--guided-legal"]
 
@@ -2248,7 +2257,7 @@ def phase_ppo_gates(device="cuda", extra=()) -> dict:
 
 # ---------------- slice 8: the Markov actors, online Markov ILQL, the chess gate ----------------
 
-MARKOV_B, MARKOV_TURNS, MARKOV_REPS = 512, 8, 2  # bench.py::bench_actor_markov's operating point
+MARKOV_B, MARKOV_TURNS, MARKOV_REPS = 512, 8, 1  # bench.py::bench_actor_markov's operating point
 MARKOV_PROFILED_STEPS = 2  # 3u: train steps under the profiler
 MARKOV_VOCAB = 512
 MAZE_REWARDS, CHESS_REWARDS = {0.0, -1.0, -4.0}, {1.0, 0.0, -1.0}
@@ -2449,7 +2458,7 @@ def phase_chess_gate(device="cuda", extra=()) -> dict:
 
 # ---------------- slice 9: the LM-oracle dialog stack ----------------
 
-DIALOG_B, DIALOG_TURNS = 64, 3  # 3d: episodes, env turns per oracle
+DIALOG_B, DIALOG_TURNS = 64, 2  # 3d: episodes, env turns per oracle
 DIALOG_MAX_LEN, DIALOG_NEW = 768, 48  # the dialog gates' policy prompts and new tokens
 ORACLE_INPUT, ORACLE_NEW = 256, 8  # lm_oracle.build_lm_twenty_questions_env's oracle calls
 T5_CHECK_LAYERS = 2  # 3d's card-vs-CPU T5 check: flan-t5-xl widths, 2 + 2 layers
@@ -2679,7 +2688,7 @@ def phase_dialog(device="cuda", asker_config=None, t5_config=None, decoder_oracl
     configuration, a GPT-2 asker against a flan-t5-xl oracle, then the same
     turns against the gates' decoder-oracle architecture at GPT-2-small
     width — in `BatchedTwentyQuestionsEnv`, DIALOG_B = 64 episodes,
-    DIALOG_TURNS = 3 env turns per oracle. The asker: GPT-2-small (d768 L12
+    DIALOG_TURNS = 2 env turns per oracle. The asker: GPT-2-small (d768 L12
     H12) over the 20Q task BPE, bf16 weights from a seed, sampled through
     `GenerationPolicy` over `LMServer` (prompts to 768 tokens, 48 new). The
     T5: flan_t5_xl()'s widths (d2048, d_kv 64, d_ff 5120, 24 + 24 layers, 32
@@ -3108,6 +3117,160 @@ def _dropout_card_vs_cpu(device, config=None) -> dict:
     return dict(dropout_rel_err=rel, dropout_keep_share=share)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _max_diff(got: dict, ref: dict) -> float:
+    return max((got[k].float() - ref[k].float()).abs().max().item() for k in ref)
+
+
+SHARDED_REPS = 3  # 3x's timed steps
+
+
+def phase_sharded(config, device="cuda") -> dict:
+    """Phase 3x: the sharded code on the card in a one-rank group
+    (`core/io.py::distributed_init` with explicit arguments: NCCL, rank 0 of
+    1, a local address). Phase 3t's ILQL step runs through `load_mesh((1,
+    1, 1))` and `shard_train_state`, every module wrapped by FSDP2 by its
+    rule table, beside the unsharded step from the same weights and batch:
+    one warm-up and SHARDED_REPS timed steps each, every step's launches
+    exact (3·L / L / L, all tensor-core); the losses and the updated
+    parameters of every module against the unsharded ones (the largest
+    difference printed and held to 1e-6); one step of each profiled (device
+    busy time; the sharded step's NCCL kernels, count and device time, and
+    FSDP2's unshard and reduce events). Then the sharded V head's train
+    state written (gathered whole, rank 0 writes) against the unsharded
+    state's write, byte for byte, and the V head read
+    back into a fresh sharded head through the stream-sharded read; then
+    `make_ring_attention` over a one-rank sp mesh at the Text-Nav windows'
+    bf16 shapes (B=32, H=12, T=640, Dh=64, right-padded) against K1's
+    output. The group is destroyed at the end."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+
+    from lmrl_gym_torch.core.io import distributed_init
+    from lmrl_gym_torch.parallel.mesh import MESH_AXES_SP, full_state_dict, is_sharded, load_mesh, shard_module, \
+        shard_train_state
+    from lmrl_gym_torch.parallel.ring_attention import make_ring_attention
+
+    L = config.num_layers
+    want = (3 * L, L, L)
+    t_phase = time.perf_counter()
+    check(distributed_init(f"localhost:{_free_port()}", 1, 0, device=device, timeout_s=120), "no group started")
+    try:
+        backend = dist.get_backend()
+        check(backend == ("nccl" if device == "cuda" else "gloo"), f"backend {backend}")
+        mesh = load_mesh((1, 1, 1), device=device)
+        ilql_config = ILQLConfig()
+        batch = _train_batch(device)
+        ref = init_ilql_state(*_train_modules(config, device), adamw(1e-4), adamw(1e-3), ilql_config)
+        state = init_ilql_state(*_train_modules(config, device), adamw(1e-4), adamw(1e-3), ilql_config)
+        shard_train_state(state, mesh)
+        fields = ("base", "target_base_params", "q1_head", "q2_head", "v_head", "q1_target_params", "q2_target_params")
+
+        def module(st, f):
+            m = getattr(st, f)
+            return m.params if isinstance(m, TrainState) else m
+
+        check(all(is_sharded(module(state, f)) and all(isinstance(p, DTensor) for p in module(state, f).parameters())
+                  for f in fields), "3x: a module is not wrapped by FSDP2")
+        ref_step = make_ilql_train_step(LMCore(config, device), ilql_config, PAD_ID)
+        step = make_ilql_train_step(LMCore(config, device, mesh), ilql_config, PAD_ID, mesh)
+        losses, times = {"unsharded": [], "sharded": []}, {"unsharded": [], "sharded": []}
+        for i in range(1 + SHARDED_REPS):
+            for name, fn, st in (("unsharded", ref_step, ref), ("sharded", step, state)):
+                _reset_counts()
+                _sync(device)
+                t0 = time.perf_counter()
+                st, loss, _ = fn(st, batch)
+                _sync(device)
+                if i:  # the first is the warm-up
+                    times[name].append(time.perf_counter() - t0)
+                check(_train_counts() == want, f"3x {name} step launched {_train_counts()}, want {want}")
+                check(_tc_counts() == (L, L) and flash_fwd.tc_launches == 3 * L,
+                      f"3x {name} step: tensor-core launches {_tc_counts()} / {flash_fwd.tc_launches}")
+                losses[name].append(loss.item())
+        check(all(math.isfinite(x) for x in losses["sharded"]), f"3x losses {losses['sharded']}")
+        loss_diff = max(abs(a - b) for a, b in zip(losses["sharded"], losses["unsharded"]))
+        param_diff = max(_max_diff(full_state_dict(module(state, f)), module(ref, f).state_dict()) for f in fields)
+        log(f"3x sharded ILQL step (mesh {mesh.shape}, backend {backend}, FSDP2 on {len(fields)} modules): "
+            f"losses {[round(x, 6) for x in losses['sharded']]}; largest difference from the unsharded step: "
+            f"loss {loss_diff:.3e}, parameters {param_diff:.3e}")
+        check(loss_diff <= 1e-6 * max(1.0, abs(losses["unsharded"][-1])) and param_diff <= 1e-6,
+              f"3x sharded step apart from the unsharded one: loss {loss_diff}, parameters {param_diff}")
+        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        prof_out = {}
+        for name, fn, st in (("unsharded", ref_step, ref), ("sharded", step, state)):
+            for _ in range(PROFILER_TRIES):  # each try is one more step: both states take as many
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn(st, batch)
+                    _sync(device)
+                events = prof.key_averages()
+                kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+                if device != "cuda" or sum(e.self_device_time_total for e in kernels) > 0:
+                    break
+            prof_out[name] = (events, kernels)
+        events, kernels = prof_out["sharded"]
+        nccl = [e for e in kernels if "nccl" in e.key.lower()]
+        fsdp = {e.key: e.count for e in events if e.key in ("FSDP::pre_forward", "FSDP::post_backward_reduce")}
+        busy = {k: sum(e.self_device_time_total for e in v[1]) / 1e3 for k, v in prof_out.items()}
+        log(f"3x step time: sharded median {1e3 * med['sharded']:.1f} ms (min {1e3 * min(times['sharded']):.1f}), "
+            f"unsharded median {1e3 * med['unsharded']:.1f} ms (min {1e3 * min(times['unsharded']):.1f}); device "
+            f"busy per step {busy['sharded']:.1f} ms sharded, {busy['unsharded']:.1f} ms unsharded; NCCL kernels per "
+            f"sharded step {sum(e.count for e in nccl)}, device time {sum(e.self_device_time_total for e in nccl) / 1e3:.2f}"
+            f" ms; FSDP2 events {fsdp}")
+        extra = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in kernels
+                        if e.key not in {u.key for u in prof_out["unsharded"][1]}), reverse=True)[:4]
+        for ms, n, key in extra:
+            log(f"  kernel only in the sharded step: {ms:8.2f} ms x{n:4d}  {key[:100]}")
+
+        root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+        try:
+            t0 = time.perf_counter()
+            for name, st in (("sharded", state), ("whole", ref)):
+                loop_checkpoints.dump_modules(os.path.join(root, name), {"v_head": st.v_head}, save_train_state=True)
+            for rel in ("v_head/train_state.msgpack",):
+                with open(os.path.join(root, "sharded", rel), "rb") as f, open(os.path.join(root, "whole", rel), "rb") as g:
+                    check(f.read() == g.read(), f"3x: the sharded write of {rel} differs from the unsharded write")
+            t_write = time.perf_counter() - t0
+            v_cfg = state.v_head.params.config
+            fresh = shard_module(MLPHead(v_cfg, device=device, seed=99), mesh)
+            t0 = time.perf_counter()
+            restore_module(os.path.join(root, "sharded"), "v_head", fresh)
+            check(_max_diff(full_state_dict(fresh), full_state_dict(state.v_head.params)) == 0.0,
+                  "3x: the stream-sharded read differs from the written state")
+            log(f"3x checkpoint: sharded and unsharded writes ({_dir_bytes(os.path.join(root, 'sharded')) / 1e6:.1f} MB "
+                f"each) byte-identical, both in {t_write:.2f} s; stream-sharded read {time.perf_counter() - t0:.2f} s")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+        sp_mesh = load_mesh((1, 1, 1, 1), MESH_AXES_SP, device=device)
+        gen = torch.Generator(device=device).manual_seed(5)
+        b, h, t, dh = TRAIN_B, H, TN_LEN, DH
+        q, k, v = (torch.randn(b, h, t, dh, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=gen, device=device)
+        bias = torch.where(torch.arange(t, device=device)[None, :] < lengths[:, None], 0.0, _NEG_BIG).float()
+        ring_out = make_ring_attention(sp_mesh, sm_scale=1.0 / math.sqrt(dh))(q, k, v, bias)
+        k1_out = flash_fwd(q, k, v, bias, causal=True, sm_scale=1.0 / math.sqrt(dh))[0]
+        err = excess(ring_out, k1_out, torch.bfloat16).max().item()
+        check(err <= TOL[torch.bfloat16][0], f"3x ring attention against K1: excess {err}")
+        log(f"3x ring attention over a one-rank sp mesh against K1 (B={b} H={h} T={t} Dh={dh} bf16, right-padded): "
+            f"max |ring − K1| {(ring_out.float() - k1_out.float()).abs().max().item():.3e}")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "3x: the group is still up")
+    log(f"phase 3x: {time.perf_counter() - t_phase:.1f} s")
+    names = ("flash_fwd_sharded_step", "flash_bwd_dq_sharded_step", "flash_bwd_dkv_sharded_step",
+             "flash_fwd_tc_sharded_step", "flash_bwd_dq_tc_sharded_step", "flash_bwd_dkv_tc_sharded_step")
+    return dict(zip(names, want + (3 * L, L, L)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
@@ -3166,6 +3329,7 @@ def main() -> int:
         t0 = time.perf_counter()
         launches.update(phase_cli())
         log(f"phase 3i: {time.perf_counter() - t0:.1f} s")
+        launches.update(phase_sharded(launches["config"]))
         t0 = time.perf_counter()
         phase_card_vs_cpu(launches["base"], launches["config"])
         log(f"phase 4 serving: {time.perf_counter() - t0:.1f} s")
@@ -3221,7 +3385,7 @@ def main() -> int:
                      "ppo_gate_text_nav", "ppo_gate_maze", "markov_maze", "markov_chess", "markov_guided",
                      "online_markov_round", "online_markov_step", "chess_gate", "dialog_asker_turn",
                      "dialog_oracle_turn", "dialog_gate_car_dealer", "dialog_gate_dialog_ilql",
-                     "dialog_gate_twenty_questions", "cli_train", "cli_evaluate"):
+                     "dialog_gate_twenty_questions", "cli_train", "cli_evaluate", "sharded_step"):
             if f"{entry['name']}_{path}" in launches:
                 entry[f"launches_{path}"] = launches[f"{entry['name']}_{path}"]
             if f"{entry['name']}_tc_{path}" in launches:

@@ -13,6 +13,7 @@ from lmrl_gym_torch.core.logs import detach_logs
 from lmrl_gym_torch.core.optimizer import Params, TrainState, value_and_grads
 from lmrl_gym_torch.models.interface import LMCore, initialize_attn_mask_pos_ids
 from lmrl_gym_torch.models.transformer import Transformer
+from lmrl_gym_torch.parallel.mesh import Mesh, gather_batch, sharded_step
 
 
 @dataclass(frozen=True)
@@ -38,38 +39,45 @@ def bc_loss_from_params(
     pad_token_id: int,
     train: bool,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ):
     attention_mask, position_ids = initialize_attn_mask_pos_ids(batch.input_ids, pad_token_id)
     logits, _ = core.forward(params, batch.input_ids, attention_mask, position_ids, train=train, generator=generator)
     return masked_lm_loss(
-        logits[:, :-1],
-        batch.input_ids[:, 1:],
-        attention_mask[:, 1:].float(),
-        batch.training_mask[:, 1:].float(),
+        *gather_batch(
+            mesh,
+            logits[:, :-1],
+            batch.input_ids[:, 1:],
+            attention_mask[:, 1:].float(),
+            batch.training_mask[:, 1:].float(),
+        ),
         non_train_weight=config.non_action_weight,
     )
 
 
 def bc_loss_and_grads(
     core: LMCore, state: BCTrainState, batch: BCBatch, config: BCConfig, pad_token_id: int,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Any, Params]:
-    loss, logs = bc_loss_from_params(core, state.model.params, batch, config, pad_token_id, train=True, generator=generator)
+    loss, logs = bc_loss_from_params(core, state.model.params, batch, config, pad_token_id, train=True,
+                                     generator=generator, mesh=mesh)
     (grads,) = value_and_grads(loss, (state.model.params,))
     return loss.detach(), detach_logs(logs), grads
 
 
 def make_bc_train_step(
-    core: LMCore, config: BCConfig, pad_token_id: int
+    core: LMCore, config: BCConfig, pad_token_id: int, mesh: Optional[Mesh] = None
 ) -> Callable[[BCTrainState, BCBatch, Optional[torch.Generator]], Tuple[BCTrainState, torch.Tensor, Any]]:
-    """step(state, batch, generator=None) → (state, loss, logs)."""
+    """step(state, batch, generator=None) → (state, loss, logs). Under a
+    distributed `mesh` each rank takes its rows of the global batch (and,
+    through `core`, its slice of the sequence under sp)."""
 
     def step(state: BCTrainState, batch: BCBatch, generator: Optional[torch.Generator] = None):
-        loss, logs, grads = bc_loss_and_grads(core, state, batch, config, pad_token_id, generator)
+        loss, logs, grads = bc_loss_and_grads(core, state, batch, config, pad_token_id, generator, mesh)
         state.model.apply_gradients(grads)
         return state, loss, logs
 
-    return step
+    return sharded_step(step, mesh)
 
 
 def make_bc_eval_loss(core: LMCore, config: BCConfig, pad_token_id: int):

@@ -22,6 +22,7 @@ from lmrl_gym_torch.core.logs import detach_logs
 from lmrl_gym_torch.core.optimizer import GradientTransformation, TrainState, value_and_grads
 from lmrl_gym_torch.models.interface import LMCore, initialize_attn_mask_pos_ids
 from lmrl_gym_torch.models.transformer import Transformer
+from lmrl_gym_torch.parallel.mesh import Mesh, gather_batch, sharded_step
 
 
 @dataclass(frozen=True)
@@ -81,8 +82,10 @@ def cql_forward(
     pad_token_id: int,
     train: bool,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Any]:
-    """Runs all forwards and computes the CQL loss → (loss, logs)."""
+    """Runs all forwards and computes the CQL loss → (loss, logs); the loss
+    inputs are gathered over the batch ranks of a distributed `mesh`."""
     input_ids = batch.input_ids
     attention_mask, position_ids = initialize_attn_mask_pos_ids(input_ids, pad_token_id)
 
@@ -130,25 +133,28 @@ def cql_forward(
             tq2_final = tq2_out.amax(dim=-1)[rows, last_token_idx] * live
 
     return cql_loss(
-        q1,
-        q2,
-        target_q1,
-        target_q2,
-        tq1_final,
-        tq2_final,
-        q1_out[:, :-1].float(),
-        q2_out[:, :-1].float(),
-        input_ids[:, 1:],
-        attention_mask[:, 1:].float(),
-        batch.should_take_action,
-        batch.rewards,
+        *gather_batch(
+            mesh,
+            q1,
+            q2,
+            target_q1,
+            target_q2,
+            tq1_final,
+            tq2_final,
+            q1_out[:, :-1].float(),
+            q2_out[:, :-1].float(),
+            input_ids[:, 1:],
+            attention_mask[:, 1:].float(),
+            batch.should_take_action,
+            batch.rewards,
+        ),
         gamma=config.gamma,
         cql_weight=config.cql_weight,
     )
 
 
 def make_cql_train_step(
-    core: LMCore, config: CQLConfig, pad_token_id: int
+    core: LMCore, config: CQLConfig, pad_token_id: int, mesh: Optional[Mesh] = None
 ) -> Callable[[CQLTrainState, ILQLBatch, Optional[torch.Generator]], Tuple[CQLTrainState, torch.Tensor, Any]]:
     """step(state, batch, generator=None) → (state, loss, logs); the state is
     updated in place. `generator` draws the dropout masks."""
@@ -159,7 +165,7 @@ def make_cql_train_step(
             state.base.params, state.target_base_params,
             state.q1_head.params, state.q2_head.params,
             state.q1_target_params, state.q2_target_params,
-            batch, config, pad_token_id, train=True, generator=generator,
+            batch, config, pad_token_id, train=True, generator=generator, mesh=mesh,
         )
         base_g, q1_g, q2_g = value_and_grads(loss, (state.base.params, state.q1_head.params, state.q2_head.params))
         state.base.apply_gradients(base_g)
@@ -171,4 +177,4 @@ def make_cql_train_step(
         update_target(state.q2_head, state.q2_target_params, config)
         return state, loss.detach(), detach_logs(logs)
 
-    return step
+    return sharded_step(step, mesh)

@@ -41,6 +41,7 @@ from lmrl_gym_torch.core.optimizer import (
 )
 from lmrl_gym_torch.models.interface import LMCore, initialize_attn_mask_pos_ids
 from lmrl_gym_torch.models.transformer import Transformer
+from lmrl_gym_torch.parallel.mesh import Mesh, gather_batch, sharded_step
 
 @dataclass(frozen=True)
 class ILQLConfig:
@@ -130,8 +131,11 @@ def ilql_forward(
     pad_token_id: int,
     train: bool,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Any]:
-    """Runs all forwards and computes the ILQL loss → (loss, logs)."""
+    """Runs all forwards and computes the ILQL loss → (loss, logs). Under a
+    distributed `mesh` the batch is this rank's rows and the loss inputs are
+    gathered over the batch ranks first."""
     input_ids = batch.input_ids
     attention_mask, position_ids = initialize_attn_mask_pos_ids(input_ids, pad_token_id)
 
@@ -191,18 +195,21 @@ def ilql_forward(
             v_final = v_full[rows, final_idx] * (1 - dones_f)
 
     return ilql_loss(
-        q1,
-        q2,
-        v,
-        v_final,
-        target_q1,
-        target_q2,
-        q1_out[:, :-1].float(),
-        q2_out[:, :-1].float(),
-        input_ids[:, 1:],
-        attention_mask[:, 1:].float(),
-        batch.should_take_action,
-        batch.rewards,
+        *gather_batch(
+            mesh,
+            q1,
+            q2,
+            v,
+            v_final,
+            target_q1,
+            target_q2,
+            q1_out[:, :-1].float(),
+            q2_out[:, :-1].float(),
+            input_ids[:, 1:],
+            attention_mask[:, 1:].float(),
+            batch.should_take_action,
+            batch.rewards,
+        ),
         gamma=config.gamma,
         tau=config.tau,
         cql_weight=config.cql_weight,
@@ -216,6 +223,7 @@ def ilql_loss_and_grads(
     config: ILQLConfig,
     pad_token_id: int,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Any, Tuple[Params, Params, Params, Params]]:
     """The training forward and its backward: (loss, logs, (base, q1, q2, v)
     gradients), the `jax.value_and_grad` of the JAX step."""
@@ -224,7 +232,7 @@ def ilql_loss_and_grads(
         state.base.params, state.target_base_params,
         state.q1_head.params, state.q2_head.params, state.v_head.params,
         state.q1_target_params, state.q2_target_params,
-        batch, config, pad_token_id, train=True, generator=generator,
+        batch, config, pad_token_id, train=True, generator=generator, mesh=mesh,
     )
     grads = value_and_grads(
         loss, (state.base.params, state.q1_head.params, state.q2_head.params, state.v_head.params)
@@ -245,13 +253,16 @@ def update_target(train_state: TrainState, target: nn.Module, config) -> None:
 
 
 def make_ilql_train_step(
-    core: LMCore, config: ILQLConfig, pad_token_id: int
+    core: LMCore, config: ILQLConfig, pad_token_id: int, mesh: Optional[Mesh] = None
 ) -> Callable[[ILQLTrainState, ILQLBatch, Optional[torch.Generator]], Tuple[ILQLTrainState, torch.Tensor, Any]]:
     """step(state, batch, generator=None) → (state, loss, logs); the state is
-    updated in place. `generator` draws the dropout masks."""
+    updated in place. `generator` draws the dropout masks. Under a
+    distributed `mesh` (a state sharded by `parallel/mesh.py::
+    shard_train_state`) each rank takes its rows of the global batch."""
 
     def step(state: ILQLTrainState, batch: ILQLBatch, generator: Optional[torch.Generator] = None):
-        loss, logs, (base_g, q1_g, q2_g, v_g) = ilql_loss_and_grads(core, state, batch, config, pad_token_id, generator)
+        loss, logs, (base_g, q1_g, q2_g, v_g) = ilql_loss_and_grads(core, state, batch, config, pad_token_id,
+                                                                    generator, mesh)
         state.base.apply_gradients(base_g)
         state.q1_head.apply_gradients(q1_g)
         state.q2_head.apply_gradients(q2_g)
@@ -262,7 +273,7 @@ def make_ilql_train_step(
         update_target(state.q2_head, state.q2_target_params, config)
         return state, loss, logs
 
-    return step
+    return sharded_step(step, mesh)
 
 
 def make_ilql_eval_loss(core: LMCore, config: ILQLConfig, pad_token_id: int):

@@ -33,6 +33,7 @@ from lmrl_gym_torch.core.logs import detach_logs
 from lmrl_gym_torch.core.optimizer import TrainState, value_and_grads
 from lmrl_gym_torch.models.interface import LMCore, initialize_attn_mask_pos_ids
 from lmrl_gym_torch.models.transformer import Transformer
+from lmrl_gym_torch.parallel.mesh import Mesh, gather_batch, sharded_step
 from lmrl_gym_torch.text.frames import TokenTrajectoryChain
 
 
@@ -113,24 +114,31 @@ def ppo_forward(
 
 
 def make_ppo_train_step(
-    core: LMCore, config: PPOConfig, pad_token_id: int
+    core: LMCore, config: PPOConfig, pad_token_id: int, mesh: Optional[Mesh] = None
 ) -> Callable[[PPOTrainState, PPOBatch, Optional[torch.Generator]], Tuple[PPOTrainState, torch.Tensor, Any]]:
-    """step(state, batch, generator=None) → (state, loss, logs)."""
+    """step(state, batch, generator=None) → (state, loss, logs); each rank
+    takes its rows of the global batch under a distributed `mesh`, and the
+    loss inputs are gathered over the batch ranks."""
 
     def step(state: PPOTrainState, batch: PPOBatch, generator: Optional[torch.Generator] = None):
         policy, value_head = state.policy.params, state.value_head.params
         attention_mask, position_ids = initialize_attn_mask_pos_ids(batch.input_ids, pad_token_id)
         logits, values = ppo_forward(core, policy, value_head, batch.input_ids, attention_mask, position_ids,
                                      train=True, generator=generator)
+        mask, logprobs, values, sta, old_logprobs, old_values, old_advantages, old_returns = gather_batch(
+            mesh, attention_mask[:, 1:].float(), token_logprobs_from_logits(logits, batch.input_ids),
+            values[:, :-1], batch.should_take_action, batch.old_logprobs, batch.old_values,
+            batch.old_advantages, batch.old_returns,
+        )
         loss, logs = ppo_loss(
-            attention_mask=attention_mask[:, 1:].float(),
-            logprobs=token_logprobs_from_logits(logits, batch.input_ids),
-            values=values[:, :-1],
-            should_take_action=batch.should_take_action,
-            old_logprobs=batch.old_logprobs,
-            old_values=batch.old_values,
-            old_advantages=batch.old_advantages,
-            old_returns=batch.old_returns,
+            attention_mask=mask,
+            logprobs=logprobs,
+            values=values,
+            should_take_action=sta,
+            old_logprobs=old_logprobs,
+            old_values=old_values,
+            old_advantages=old_advantages,
+            old_returns=old_returns,
             cliprange_value=config.cliprange_value,
             cliprange=config.cliprange,
             value_loss_coef=config.value_loss_coef,
@@ -138,12 +146,13 @@ def make_ppo_train_step(
         if batch.bc_input_ids is not None and config.bc_loss_weight != 0.0:
             bc_mask, bc_pos = initialize_attn_mask_pos_ids(batch.bc_input_ids, pad_token_id)
             bc_logits, _ = core.forward(policy, batch.bc_input_ids, bc_mask, bc_pos, train=True, generator=generator)
-            bc_loss_val, _ = masked_lm_loss(
+            bc_loss_val, _ = masked_lm_loss(*gather_batch(
+                mesh,
                 bc_logits[:, :-1],
                 batch.bc_input_ids[:, 1:],
                 bc_mask[:, 1:].float(),
                 batch.bc_training_mask[:, 1:].float(),
-            )
+            ))
             loss = loss + config.bc_loss_weight * bc_loss_val
             logs = dict(logs, bc_loss=bc_loss_val)
         policy_g, head_g = value_and_grads(loss, (policy, value_head))
@@ -151,7 +160,7 @@ def make_ppo_train_step(
         state.value_head.apply_gradients(head_g)
         return state, loss.detach(), detach_logs(logs)
 
-    return step
+    return sharded_step(step, mesh)
 
 
 def _f32(x: np.ndarray) -> torch.Tensor:

@@ -16,6 +16,9 @@ Policy kinds:
 
 Task extras: maze adds per-cell optimal-move accuracy vs the BFS table;
 chess adds the positional victories/%-illegal harness.
+
+`--mesh` and `torchrun` as in `cli/train.py`: the modules are sharded by
+their rules and each rank reads its blocks of the checkpoint.
 """
 from __future__ import annotations
 
@@ -37,14 +40,16 @@ from lmrl_gym_torch.algos.value_policy import (
     tokenize_histories_for_scoring,
 )
 from lmrl_gym_torch.cli.tasks import TASKS
-from lmrl_gym_torch.cli.train import ALGOS, MODEL_SIZES, build_head, check_mesh
+from lmrl_gym_torch.cli.train import ALGOS, MODEL_SIZES, build_head, check_mesh, start_ranks
 from lmrl_gym_torch.core.device import resolve_device
+from lmrl_gym_torch.core.io import is_main_process
 from lmrl_gym_torch.envs.base import text_env_eval
 from lmrl_gym_torch.loops.checkpoints import load_module_config, restore_module
 from lmrl_gym_torch.models.config import TransformerConfig
 from lmrl_gym_torch.models.generation import SamplingConfig
 from lmrl_gym_torch.models.interface import LMCore
 from lmrl_gym_torch.models.transformer import init_params
+from lmrl_gym_torch.parallel.mesh import shard_module
 from lmrl_gym_torch.text.frames import Text
 from lmrl_gym_torch.text.tokenizer import load_tokenizer, newline_id
 
@@ -152,12 +157,20 @@ def load_config(ckpt_dir: str, fallback_size: str) -> TransformerConfig:
     return MODEL_SIZES[fallback_size]()
 
 
+def load_sharded_module(ckpt_dir: str, name: str, module, mesh):
+    """A checkpointed module, sharded by its rules over `mesh` (when given)
+    and read through `loops/checkpoints.py::restore_module`, which cuts each
+    rank's block as it reads."""
+    return restore_module(ckpt_dir, name, shard_module(module, mesh) if mesh is not None else module)
+
+
 def build_eval_policy(args, ckpt_dir, config, tokenizer, core, max_length):
-    """Rebuild the serve path for the checkpoint's module layout; every
-    module is read through `loops/checkpoints.py::restore_module`."""
+    """Rebuild the serve path for the checkpoint's module layout, every
+    module sharded over the core's mesh (`load_sharded_module`)."""
     device = core.device
     trunk_module = "policy" if has_module(ckpt_dir, "policy") else "base"
-    base = restore_module(ckpt_dir, trunk_module, init_params(config, seed=args.seed, device=device))
+    load = lambda name, module: load_sharded_module(ckpt_dir, name, module, core.mesh)  # noqa: E731
+    base = load(trunk_module, init_params(config, seed=args.seed, device=device))
 
     value_algo = args.algo in ("ilql", "mc", "cql")
     kind = args.policy or ("guided" if value_algo else "generate")
@@ -173,11 +186,11 @@ def build_eval_policy(args, ckpt_dir, config, tokenizer, core, max_length):
     q1 = q2 = v_head = None
     if value_algo:
         q1_name = "q_head" if args.algo == "mc" else "q1_head"
-        q1 = restore_module(ckpt_dir, q1_name, build_head("mlp", config, device, args.seed)[0])
+        q1 = load(q1_name, build_head("mlp", config, device, args.seed)[0])
         if has_module(ckpt_dir, "q2_head"):
-            q2 = restore_module(ckpt_dir, "q2_head", build_head("mlp", config, device, args.seed)[0])
+            q2 = load("q2_head", build_head("mlp", config, device, args.seed)[0])
         if has_module(ckpt_dir, "v_head"):
-            v_head = restore_module(ckpt_dir, "v_head", build_head("mlp", config, device, args.seed, output_dim=1)[0])
+            v_head = load("v_head", build_head("mlp", config, device, args.seed, output_dim=1)[0])
     bundle = ValueRLParams(pi_beta=None, base=base, q1_head=q1, q2_head=q2, v_head=v_head)
 
     if kind in ("generate", "guided"):
@@ -231,12 +244,12 @@ def build_external_policy(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    check_mesh(args.mesh)
     task = TASKS[args.task]
     max_length = args.max_length or task.max_length
 
     if args.policy in ("human", "api"):
         print(f"evaluating {args.policy} baseline on {args.task}")
+        check_mesh(args.mesh, "cpu")
         policy = build_external_policy(args)
         if args.policy == "human":
             # one HumanPolicy has one transcript/prompt state; batched slots
@@ -244,6 +257,8 @@ def main(argv=None):
             args.bsize = 1
     else:
         device = resolve_device(args.device)
+        start_ranks(args)
+        mesh = check_mesh(args.mesh, device)
         if args.checkpoint is None:
             raise SystemExit("--checkpoint is required unless --policy human|api")
         ckpt_dir = resolve_checkpoint_dir(args.checkpoint)
@@ -254,7 +269,7 @@ def main(argv=None):
 
         tokenizer = load_tokenizer(args.tokenizer)
         config = load_config(ckpt_dir, args.model_size)
-        core = LMCore(config, device=device)
+        core = LMCore(config, device=device, mesh=mesh)
         policy = build_eval_policy(args, ckpt_dir, config, tokenizer, core, max_length)
 
     env = task.build_env()
@@ -295,7 +310,7 @@ def main(argv=None):
         print(json.dumps(chess_summary, indent=2, default=float))
 
     print(json.dumps(results, indent=2, default=float))
-    if args.out:
+    if args.out and is_main_process():
         with open(args.out, "w") as f:
             json.dump(results, f, indent=2, default=float)
     return results

@@ -17,8 +17,15 @@ from `torch.Generator`s seeded as the JAX CLI seeds its keys. `main(argv,
 replay=Replay(...))` takes another run's initial modules and the Gumbel
 noise of its sampled serving calls instead.
 
-`--mesh` takes a shape that fits one device (the default `1,-1,1`); any
-other shape raises: multi-device parallelism is not ported yet.
+`--mesh dp,fsdp,mp` (default `1,-1,1`) lays a mesh over the ranks of the
+process group that `torchrun` starts (`core/io.py::distributed_init`; one
+process and one card per rank, NCCL on the card, gloo with `--device
+cpu`): every module is sharded by its rule table (FSDP2) and each rank
+trains on its rows of every batch (`parallel/mesh.py`). Without `torchrun`
+the run is one rank, and a shape that does not fit the world size raises.
+
+    torchrun --nproc_per_node 2 -m lmrl_gym_torch.cli.train --task maze \
+        --algo ilql --model-size tiny --mesh 1,2,1 --device cpu --save-dir out
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import Dict, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from lmrl_gym_torch.algos import data as algo_data
@@ -36,7 +44,8 @@ from lmrl_gym_torch.algos.value_policy import GenerationPolicy, LMServer, ValueG
 from lmrl_gym_torch.cli.tasks import TASKS
 from lmrl_gym_torch.core.blocking import BlockingStrategy, Padding, Truncation
 from lmrl_gym_torch.core.device import resolve_device
-from lmrl_gym_torch.core.experiment import setup_experiment_save
+from lmrl_gym_torch.core.experiment import setup_experiment_save, uuid_name
+from lmrl_gym_torch.core.io import distributed_init, is_main_process
 from lmrl_gym_torch.core.optimizer import OptimizerConfig, TrainState, make_optimizer
 from lmrl_gym_torch.envs.base import text_env_eval
 from lmrl_gym_torch.loops.offline import OfflineLoopConfig, offline_train_loop
@@ -46,6 +55,7 @@ from lmrl_gym_torch.models.generation import SamplingConfig
 from lmrl_gym_torch.models.heads import LinearHead, LinearHeadConfig, MLPHead, MLPHeadConfig
 from lmrl_gym_torch.models.interface import LMCore
 from lmrl_gym_torch.models.transformer import init_params
+from lmrl_gym_torch.parallel.mesh import Mesh, load_mesh, shard_module, shard_train_state
 from lmrl_gym_torch.text.frames import TokenTrajectoryChain
 from lmrl_gym_torch.text.tokenizer import load_tokenizer, newline_id
 
@@ -116,7 +126,7 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--head-lr", type=float, default=1e-3)
     p.add_argument("--max-length", type=int, default=None)
-    p.add_argument("--mesh", type=str, default="1,-1,1", help="dp,fsdp,mp (one device: 1,-1,1)")
+    p.add_argument("--mesh", type=str, default="1,-1,1", help="dp,fsdp,mp over the torchrun ranks (-1: the rest)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save-dir", type=str, default=None)
     p.add_argument("--exp-name", type=str, default=None)
@@ -171,18 +181,37 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_mesh(mesh: str) -> None:
-    """The port runs on one device: a mesh shape whose axes multiply to one
-    (a -1 axis fills to 1) runs; any other raises."""
+def check_mesh(mesh: str, device=None) -> Mesh:
+    """The `--mesh` shape over the process group's ranks (one rank when no
+    group was started); a shape that does not fit the world size raises."""
     shape = [int(x) for x in mesh.split(",")]
-    if any(n == 0 or n < -1 for n in shape) or shape.count(-1) > 1 or np.prod([n for n in shape if n > 0]) != 1:
-        raise NotImplementedError(
-            f"--mesh {mesh}: the port runs on one device; multi-device parallelism (ROADMAP Queue 1 item 10) "
-            "is not ported yet"
-        )
+    if any(n == 0 or n < -1 for n in shape):
+        raise ValueError(f"--mesh {mesh}: axes are positive sizes or one -1")
+    try:
+        return load_mesh(shape, device=device)
+    except ValueError as e:
+        raise ValueError(f"--mesh {mesh}: {e}") from e
 
 
-def resolve_oracle_env(args, task, device, save_dir):
+def start_ranks(args) -> None:
+    """Join the `torchrun` group when there is one (nothing otherwise) and
+    give every rank the same experiment name."""
+    if not distributed_init(device=args.device):
+        return
+    if getattr(args, "save_dir", None) is not None and args.exp_name is None:
+        name = [uuid_name("train")]
+        dist.broadcast_object_list(name, src=0)
+        args.exp_name = name[0]
+
+
+def shard_state(state, core) -> None:
+    """Every module of `state` sharded over the core's mesh (a no-op on one
+    rank)."""
+    if core.mesh is not None:
+        shard_train_state(state, core.mesh)
+
+
+def resolve_oracle_env(args, task, device, save_dir, mesh=None):
     """--oracle lm: swap the task's env builder for one that steps through
     a trained LM oracle/buyer on the device."""
     import dataclasses as _dc
@@ -201,7 +230,7 @@ def resolve_oracle_env(args, task, device, save_dir):
         f"--oracle lm unsupported for task {task.name}; choose from {sorted(LM_ENV_BUILDERS)}"
     )
     if args.oracle_checkpoint:
-        core_o, tok_o, params_o = load_oracle(args.oracle_checkpoint, device=device)
+        core_o, tok_o, params_o = load_oracle(args.oracle_checkpoint, device=device, mesh=mesh)
         print(f"loaded LM oracle from {args.oracle_checkpoint}")
     else:
         oracle_dir = os.path.join(save_dir, "oracle_lm") if save_dir else None
@@ -209,13 +238,13 @@ def resolve_oracle_env(args, task, device, save_dir):
         print(f"training LM oracle for {task.name} ({cfg.n_episodes} episodes)...")
         if oracle_dir:
             core_o, tok_o, params_o = train_and_save_oracle(
-                task.name, oracle_dir, cfg, arch=args.oracle_arch, device=device
+                task.name, oracle_dir, cfg, arch=args.oracle_arch, device=device, mesh=mesh
             )
             print(f"saved LM oracle → {oracle_dir}")
         else:
             windows = COLLECTORS[task.name](cfg.n_episodes, cfg.seed)
             trainer = train_t5_oracle_lm if args.oracle_arch == "t5" else train_oracle_lm
-            core_o, tok_o, params_o, _ = trainer(windows, cfg, device=device)
+            core_o, tok_o, params_o, _ = trainer(windows, cfg, device=device, mesh=mesh)
 
     builder = LM_ENV_BUILDERS[task.name]
     return _dc.replace(task, build_env=lambda **kw: builder(core_o, tok_o, params_o, **kw))
@@ -233,12 +262,12 @@ def build_tokenizer(args, save_dir=None):
     return load_tokenizer(args.tokenizer)
 
 
-def build_model(args, device=None, save_dir=None):
+def build_model(args, device=None, save_dir=None, mesh=None):
     config = MODEL_SIZES[args.model_size]()
     tokenizer = build_tokenizer(args, save_dir)
     if config.vocab_size < tokenizer.vocab_size:
         config = config.replace(vocab_size=tokenizer.vocab_size)
-    core = LMCore(config, device=device)
+    core = LMCore(config, device=device, mesh=mesh)
     return config, tokenizer, core
 
 
@@ -376,18 +405,20 @@ def make_policy_evaluator(args, task, tokenizer, core, get_params):
 def main(argv=None, replay: Optional[Replay] = None):
     """Returns the run's (final train state, loop state)."""
     args = parse_args(argv)
-    check_mesh(args.mesh)
     device = resolve_device(args.device)
+    start_ranks(args)
+    mesh = check_mesh(args.mesh, device)
     task = TASKS[args.task]
     max_length = args.max_length or task.max_length
 
-    save_dir, exp_name = setup_experiment_save(args.exp_name, args.save_dir, vars(args), __file__)
-    print(f"experiment: {exp_name} save_dir: {save_dir}")
+    save_dir, exp_name = setup_experiment_save(args.exp_name, args.save_dir, vars(args), __file__,
+                                               is_main_process=is_main_process())
+    print(f"experiment: {exp_name} save_dir: {save_dir} mesh: {mesh.shape}")
 
-    config, tokenizer, core = build_model(args, device=device, save_dir=save_dir)
+    config, tokenizer, core = build_model(args, device=device, save_dir=save_dir, mesh=mesh)
 
     if args.oracle == "lm":
-        task = resolve_oracle_env(args, task, device, save_dir)
+        task = resolve_oracle_env(args, task, device, save_dir, mesh)
 
     print(f"generating {args.n_data} behavior episodes for {args.task}...")
     chains = task.generate_chains(args.n_data, args.seed)
@@ -460,7 +491,8 @@ def run_bc(args, task, config, tokenizer, core, token_chains, strategy, loop_con
         dataset = _bc_dataset(windows, strategy, tokenizer)
     params = _initial(replay, "base", lambda: init_params(config, seed=args.seed, device=device), device)
     state = BCTrainState(model=TrainState(params, make_optimizer(OptimizerConfig(lr=args.lr), params)))
-    step = _device_steps(make_bc_train_step(core, BCConfig(), tokenizer.pad_token_id), device, args.seed)
+    shard_state(state, core)
+    step = _device_steps(make_bc_train_step(core, BCConfig(), tokenizer.pad_token_id, core.mesh), device, args.seed)
 
     def batch_prep(b):
         t = _tensors(b, device, input_ids=torch.long, training_mask=torch.bool)
@@ -534,12 +566,13 @@ def run_ilql_family(args, task, config, tokenizer, core, token_chains, strategy,
         algo_config = ILQLConfig(gamma=args.gamma, tau=args.tau, cql_weight=args.cql_weight, beta=args.beta,
                                  polyak_alpha=args.polyak_alpha)
         state = init_ilql_state(base, q1, q2, v, base_tx, head_tx, algo_config)
-        step = make_ilql_train_step(core, algo_config, tokenizer.pad_token_id)
+        step = make_ilql_train_step(core, algo_config, tokenizer.pad_token_id, core.mesh)
     else:
         algo_config = CQLConfig(gamma=args.gamma, cql_weight=args.cql_weight, beta=args.beta,
                                 polyak_alpha=args.polyak_alpha)
         state = init_cql_state(base, q1, q2, base_tx, head_tx, algo_config)
-        step = make_cql_train_step(core, algo_config, tokenizer.pad_token_id)
+        step = make_cql_train_step(core, algo_config, tokenizer.pad_token_id, core.mesh)
+    shard_state(state, core)
     step = _device_steps(step, device, args.seed)
 
     def modules(st):
@@ -620,8 +653,10 @@ def run_mc(args, task, config, tokenizer, core, token_chains, strategy, loop_con
         base=TrainState(base, make_optimizer(OptimizerConfig(lr=args.lr), base)),
         q_head=TrainState(q, make_optimizer(OptimizerConfig(lr=args.head_lr), q)),
     )
+    shard_state(state, core)
     algo_config = MCConfig(gamma=args.gamma, cql_weight=args.cql_weight, beta=args.beta)
-    step = _device_steps(make_mc_train_step(core, algo_config, tokenizer.pad_token_id), device, args.seed)
+    step = _device_steps(make_mc_train_step(core, algo_config, tokenizer.pad_token_id, core.mesh), device,
+                         args.seed)
 
     def batch_prep(b):
         t = _tensors(b, device, input_ids=torch.long, should_take_action=torch.bool, returns=torch.float32)
@@ -675,8 +710,12 @@ def run_ppo(args, task, config, tokenizer, core, token_chains, strategy, loop_co
         policy=TrainState(policy, make_optimizer(OptimizerConfig(lr=args.lr), policy)),
         value_head=TrainState(value_head, make_optimizer(OptimizerConfig(lr=args.head_lr), value_head)),
     )
+    shard_state(state, core)
+    if core.mesh is not None:
+        shard_module(init_policy, core.mesh)
     algo_config = PPOConfig(gamma=args.gamma, lam=args.ppo_lam, bc_loss_weight=args.bc_loss_weight)
-    step = _device_steps(make_ppo_train_step(core, algo_config, tokenizer.pad_token_id), device, args.seed)
+    step = _device_steps(make_ppo_train_step(core, algo_config, tokenizer.pad_token_id, core.mesh), device,
+                         args.seed)
     max_length = args.max_length or task.max_length
     server = LMServer(core, tokenizer)
     sampling = make_rollout_sampling(args, tokenizer)

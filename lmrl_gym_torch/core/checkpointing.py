@@ -13,8 +13,8 @@ with bit-identical arrays, and the same tree gives the same bytes.
 Leaves are CPU tensors on load (`bfloat16` travels by name and has no
 numpy dtype). flax chunks arrays over 2**30 bytes into a map; the port
 raises on one rather than misreading it (no supported model has such a
-leaf: GPT-2-small's largest is 154 MB). `stream_sharding_fn` waits for
-the parallelism work.
+leaf: GPT-2-small's largest is 154 MB). `stream_sharding_fn` cuts each
+leaf to this rank's block as it is read, for a sharded module.
 """
 from __future__ import annotations
 
@@ -342,6 +342,20 @@ def load_pytree(path: str, target: Any = None,
     if target is None:
         return _unflatten_paths(leaves)
     return _rebuild(target, leaves, [])
+
+
+def stream_sharding_fn(mesh, spec_by_key: Callable[[str], Any]):
+    """A `sharding_fn` for `load_pytree` that keeps this rank's block of
+    each leaf, laid out as `parallel/mesh.py::shard_pytree` lays out a
+    parameter of that spec (`spec_by_key(key)`, over the flax key path; a
+    `DTensor` on the mesh's FSDP2 mesh). Leaves pass whole on a one-rank
+    mesh."""
+    from lmrl_gym_torch.parallel.mesh import place_by_spec
+
+    def fn(key: str, arr: torch.Tensor):
+        return place_by_spec(arr, mesh, spec_by_key(key))
+
+    return fn
 
 
 def save_config(config: dict, path: str) -> None:

@@ -1,9 +1,11 @@
 """Device resolution shared by every entry point of the port."""
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -30,3 +32,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def torch_dtype(name: str) -> torch.dtype:
     """Config dtype string ('bfloat16', 'float32', ...) → torch dtype."""
     return getattr(torch, name)
+
+
+def inference(fn):
+    """Run `fn` under `torch.inference_mode()`, or under `torch.no_grad()`
+    while a process group is up: FSDP2 reuses a sharded module's gathered
+    parameters from call to call (`parallel/mesh.py`), which inference
+    tensors may not be."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        with torch.no_grad() if dist.is_initialized() else torch.inference_mode():
+            return fn(*args, **kw)
+
+    return wrapped

@@ -1,6 +1,6 @@
-"""Bucket-transparent file IO and jsonl helpers: the port's copy of
-`lmrl_gym_tpu/core/io.py` less `distributed_init` and `is_main_process`
-(they come with the parallelism work, on `torch.distributed`).
+"""Bucket-transparent file IO, jsonl helpers and the process-group
+bootstrap: the port of `lmrl_gym_tpu/core/io.py`, with `distributed_init`
+and `is_main_process` on `torch.distributed`.
 
 `gcs://` / `gs://` paths route through `gcsfs` when it is installed, a
 lazy import that raises on such a path when it is absent; everything else
@@ -8,10 +8,16 @@ is plain local IO.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import os
 import shutil
-from typing import Any, Iterator, List
+from typing import Any, Iterator, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from lmrl_gym_torch.core.device import DeviceLike, resolve_device
 
 _GCS_PREFIXES = ("gcs://", "gs://")
 
@@ -90,3 +96,66 @@ def jsonl_dump(items, path: str) -> None:
     with open_with_bucket(path, "w") as f:
         for item in items:
             f.write(json.dumps(item) + "\n")
+
+
+def distributed_init(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    device: DeviceLike = None,
+    timeout_s: float = 300.0,
+) -> bool:
+    """Start the process group a multi-rank run needs; True when one is up.
+
+    A no-op (False) unless explicit arguments or the launcher's environment
+    (`WORLD_SIZE` > 1, as `torchrun` sets it) ask for a group, as the JAX
+    package's bootstrap is for a single host. The backend follows the
+    device: NCCL for `cuda` (each rank on card `LOCAL_RANK`, else its
+    rank modulo the card count), gloo for `cpu`; a `cuda` request on a
+    host without CUDA raises. `coordinator_address` is `host:port` (TCP
+    rendezvous; the launcher's `MASTER_ADDR`/`MASTER_PORT` otherwise).
+    Every collective of the group fails after `timeout_s`, so a lost rank
+    ends the run instead of hanging it."""
+    if dist.is_initialized():
+        return True
+    if num_processes is None and coordinator_address is None:
+        env_n = os.environ.get("WORLD_SIZE")
+        if env_n is None or int(env_n) <= 1:
+            return False  # one process: nothing to start
+    dev = resolve_device(device)
+    world = num_processes if num_processes is not None else int(os.environ["WORLD_SIZE"])
+    rank = process_id if process_id is not None else int(os.environ["RANK"])
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+    if coordinator_address is None:
+        init_method = "env://"
+    elif "://" in coordinator_address:  # a URL (file:// rendezvous)
+        init_method = coordinator_address
+    else:
+        init_method = f"tcp://{coordinator_address}"
+    global _TIMEOUT
+    _TIMEOUT = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method=init_method,
+        world_size=world,
+        rank=rank,
+        timeout=_TIMEOUT,
+        device_id=torch.device("cuda", torch.cuda.current_device()) if dev.type == "cuda" else None,
+    )
+    return True
+
+
+# the group's timeout, for its subgroups: process-wide, as the group is
+_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def group_timeout() -> datetime.timedelta:
+    """The timeout `distributed_init` gave the group, for its subgroups."""
+    return _TIMEOUT
+
+
+def is_main_process() -> bool:
+    """Rank 0 of the group, or the only process when none was started."""
+    return not dist.is_initialized() or dist.get_rank() == 0

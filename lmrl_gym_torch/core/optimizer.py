@@ -21,6 +21,11 @@ Defaults are optax's, not torch.optim's: `adamw` has weight_decay=1e-4;
 `clip_by_global_norm` scales by c/‖g‖ only when ‖g‖ ≥ c and adds no epsilon.
 Schedules are host functions of the update count: the learning rate of
 update i (counting from 0) is `schedule(i)`.
+
+Sharded modules (FSDP2, `parallel/mesh.py`) hold `DTensor` parameters,
+gradients and optimizer state; every transformation works on each rank's
+local block, elementwise as before, and `clip_by_global_norm` sums the
+squared norm over the ranks that hold the blocks.
 """
 from __future__ import annotations
 
@@ -29,7 +34,9 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 Params = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
@@ -49,8 +56,25 @@ def named_params(module: Union[nn.Module, Params]) -> Params:
     return module if isinstance(module, dict) else dict(module.named_parameters())
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A sharded tensor's local block (a view: in-place ops reach the
+    `DTensor`); a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _values(d: Params, keys: List[str]) -> List[torch.Tensor]:
-    return [d[k] for k in keys]
+    return [_local(d[k]) for k in keys]
+
+
+def _shard_groups(params: Optional[Params]) -> List[Any]:
+    """The process groups over which sharded parameters' blocks are split
+    (FSDP2's shard dim); empty for plain parameters and one-rank groups."""
+    for p in (params or {}).values():
+        if isinstance(p, DTensor):
+            groups = [p.device_mesh.get_group(d) for d, pl in enumerate(p.placements) if pl.is_shard()]
+            return [g for g in groups if dist.get_world_size(g) > 1]  # a one-rank group holds whole tensors
+        return []
+    return []
 
 
 # ---- schedules (optax.schedules) ----
@@ -126,14 +150,23 @@ def set_to_zero() -> GradientTransformation:
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax's rule: g·c/‖g‖ when ‖g‖ ≥ c, else g unchanged; the norm is
-    taken over every tensor together, on the device."""
+    taken over every tensor together, on the device (for sharded
+    parameters, over every rank's blocks: one all-reduce of the sum of
+    squares)."""
 
     def update(updates, state, params=None):
         keys = list(updates)
         g = _values(updates, keys)
         if not g:
             return updates, state
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        groups = _shard_groups(params)
+        if groups:
+            sq = torch.stack(torch._foreach_norm(g)).square().sum()
+            for group in groups:
+                dist.all_reduce(sq, group=group)
+            g_norm = sq.sqrt()
+        else:
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
         keep = g_norm < max_norm
         clipped = torch._foreach_div(g, g_norm)  # (g / ‖g‖)·c, in optax's order
         torch._foreach_mul_(clipped, max_norm)
@@ -214,13 +247,13 @@ def scale_by_learning_rate(learning_rate: ScalarOrSchedule) -> GradientTransform
     if not callable(learning_rate):
 
         def update_const(updates, state, params=None):
-            torch._foreach_mul_(list(updates.values()), -learning_rate)
+            torch._foreach_mul_(_values(updates, list(updates)), -learning_rate)
             return updates, state
 
         return GradientTransformation(lambda params: EmptyState(), update_const)
 
     def update(updates, state, params=None):
-        torch._foreach_mul_(list(updates.values()), -learning_rate(state.count))
+        torch._foreach_mul_(_values(updates, list(updates)), -learning_rate(state.count))
         return updates, ScaleByScheduleState(state.count + 1)
 
     return GradientTransformation(lambda params: ScaleByScheduleState(0), update)
@@ -311,7 +344,16 @@ class TrainState:
 def value_and_grads(loss: torch.Tensor, modules: Tuple[nn.Module, ...]) -> Tuple[Params, ...]:
     """Gradients of `loss` for every parameter of each module, one dict per
     module, zeros where the loss does not reach a parameter (as `jax.grad`
-    gives them), so `apply_gradients` updates every parameter."""
+    gives them), so `apply_gradients` updates every parameter.
+
+    Sharded modules take `loss.backward()`, whose FSDP2 hooks reduce each
+    rank's part into the parameters' sharded `.grad`, rescaled from FSDP2's
+    average to the sum (`grad_scale`, `parallel/mesh.py::shard_pytree`)."""
+    sharded = [getattr(m, "grad_scale", None) is not None for m in modules]
+    if any(sharded):
+        if not all(sharded):
+            raise ValueError("a step over sharded modules needs every trained module sharded")
+        return _sharded_grads(loss, modules)
     named = [named_params(m) for m in modules]
     flat = [p for d in named for p in d.values()]
     if loss.requires_grad:
@@ -325,9 +367,25 @@ def value_and_grads(loss: torch.Tensor, modules: Tuple[nn.Module, ...]) -> Tuple
     return tuple(out)
 
 
+def _sharded_grads(loss: torch.Tensor, modules: Tuple[nn.Module, ...]) -> Tuple[Params, ...]:
+    if loss.requires_grad:
+        loss.backward()
+    out = []
+    for m in modules:
+        grads = {}
+        for n, p in m.named_parameters():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+            if m.grad_scale != 1.0:
+                _local(g).mul_(m.grad_scale)
+            grads[n] = g
+        out.append(grads)
+    return tuple(out)
+
+
 def incremental_update(new: nn.Module, target: nn.Module, step_size: float) -> None:
     """target ← step_size·new + (1 − step_size)·target, in place (Polyak)."""
-    t, p = list(named_params(target).values()), list(named_params(new).values())
+    t, p = _values(named_params(target), list(named_params(target))), _values(named_params(new), list(named_params(new)))
     with torch.no_grad():
         torch._foreach_mul_(t, 1.0 - step_size)
         torch._foreach_add_(t, p, alpha=step_size)
@@ -337,7 +395,8 @@ def periodic_update(new: nn.Module, target: nn.Module, steps: int, update_period
     """target ← new, in place, when steps % update_period == 0."""
     if steps % update_period == 0:
         with torch.no_grad():
-            torch._foreach_copy_(list(named_params(target).values()), list(named_params(new).values()))
+            torch._foreach_copy_(_values(named_params(target), list(named_params(target))),
+                                 _values(named_params(new), list(named_params(new))))
 
 
 # ---- the JAX package's optimizer surface ----
@@ -406,6 +465,19 @@ def make_optimizer(config: OptimizerConfig, params: Union[nn.Module, Params]) ->
     if config.grad_accum_steps > 1:
         tx = multi_steps(tx, every_k_schedule=config.grad_accum_steps)
     return tx
+
+
+def map_param_state(opt_state: Any, fn: Callable[[str, torch.Tensor], torch.Tensor]) -> Any:
+    """The optimizer state with every per-parameter tensor (the dicts keyed
+    by parameter name: Adam's moments, accumulated gradients) replaced by
+    `fn(name, tensor)`; counts stay."""
+    if isinstance(opt_state, dict):
+        return {k: fn(k, v) for k, v in opt_state.items()}
+    if isinstance(opt_state, tuple) and hasattr(opt_state, "_fields"):
+        return type(opt_state)(*(map_param_state(x, fn) for x in opt_state))
+    if isinstance(opt_state, (list, tuple)):
+        return type(opt_state)(map_param_state(x, fn) for x in opt_state)
+    return opt_state
 
 
 def mini_step_of(opt_state: Any) -> Optional[int]:

@@ -20,7 +20,10 @@ supervised training on Q/A behavior — from in-repo scripted teachers:
 `train_and_save_oracle` / `load_oracle` write and read the JAX package's
 checkpoint layout, so an oracle saved by either package loads in the
 other. Entry points run on the card unless the caller passes
-device="cpu"; the JAX package's mesh arguments have no counterpart yet.
+device="cpu". Given a `mesh` (`parallel/mesh.py`), the trainers shard the
+model by its rule table and each rank trains on its rows of every batch,
+and `load_oracle` shards the loaded model, as the JAX package's mesh
+arguments do.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from lmrl_gym_torch.models.encdec import (
 from lmrl_gym_torch.models.generation import SamplingConfig
 from lmrl_gym_torch.models.interface import LMCore
 from lmrl_gym_torch.models.transformer import Transformer, init_params
+from lmrl_gym_torch.parallel.mesh import Mesh, gather_batch, shard_module, shard_train_state, sharded_step
 from lmrl_gym_torch.text.frames import Text, TextTrajectory, TokenTrajectory
 from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
@@ -263,6 +267,7 @@ def train_oracle_lm(
     log: Callable[[str], None] = print,
     device: DeviceLike = None,
     params: Optional[Transformer] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """BC on the supervised windows → (core, tokenizer, params, config).
 
@@ -272,7 +277,7 @@ def train_oracle_lm(
     `np.random.default_rng(cfg.seed)`, as in the JAX package."""
     tokenizer = tokenizer or ByteTokenizer()
     config = _oracle_model_config(cfg, tokenizer.vocab_size)
-    core = LMCore(config, device=device)
+    core = LMCore(config, device=device, mesh=mesh)
 
     examples = []
     for w in windows:
@@ -286,7 +291,9 @@ def train_oracle_lm(
     if params is None:
         params = init_params(config, seed=cfg.seed, device=core.device)
     state = BCTrainState(model=TrainState(params, make_optimizer(OptimizerConfig(lr=cfg.lr), params)))
-    step = make_bc_train_step(core, BCConfig(), tokenizer.pad_token_id)
+    if mesh is not None:
+        shard_train_state(state, mesh)
+    step = make_bc_train_step(core, BCConfig(), tokenizer.pad_token_id, mesh)
 
     rng = np.random.default_rng(cfg.seed)
     n_steps, last_loss = 0, float("nan")
@@ -335,7 +342,11 @@ def t5_oracle_loss(core: EncDecCore, params: EncoderDecoder, enc: torch.Tensor, 
     softmax_cross_entropy_with_integer_labels on the f32 logits, pad
     columns included)."""
     logits, _ = core.forward(params, enc, dec_in, train=True, generator=generator)
-    mask = (labels != core.config.pad_token_id).float()
+    return _t5_xent(logits, labels, core.config.pad_token_id)
+
+
+def _t5_xent(logits: torch.Tensor, labels: torch.Tensor, pad_token_id: int) -> torch.Tensor:
+    mask = (labels != pad_token_id).float()
     xent = F.cross_entropy(logits.float().flatten(0, 1), labels.flatten(), reduction="none").view_as(mask)
     return (xent * mask).sum() / mask.sum().clamp(min=1.0)
 
@@ -347,6 +358,7 @@ def train_t5_oracle_lm(
     log: Callable[[str], None] = print,
     device: DeviceLike = None,
     params: Optional[EncoderDecoder] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Seq2seq BC with plain autograd: the encoder takes the oracle prompt,
     the decoder teacher-forces the answer — the reference's oracle
@@ -364,21 +376,29 @@ def train_t5_oracle_lm(
     dataset = algo_data.ArrayDataset(t5_oracle_batches(windows, config, tokenizer, cfg.max_length))
     if params is None:
         params = init_encdec_params(config, seed=cfg.seed, device=core.device)
-    state = TrainState(params, make_optimizer(OptimizerConfig(lr=cfg.lr), params))
+    state = BCTrainState(model=TrainState(params, make_optimizer(OptimizerConfig(lr=cfg.lr), params)))
+    if mesh is not None:
+        shard_train_state(state, mesh)
     generator = torch.Generator(device=core.device).manual_seed(cfg.seed)
 
+    def step(state, batch, generator):
+        enc, dec_in, labels = batch
+        logits, _ = core.forward(state.model.params, enc, dec_in, train=True, generator=generator)
+        loss = _t5_xent(*gather_batch(mesh, logits, labels), config.pad_token_id)
+        (grads,) = value_and_grads(loss, (state.model.params,))
+        state.model.apply_gradients(grads)
+        return state, loss.detach()
+
+    step = sharded_step(step, mesh)
     rng = np.random.default_rng(cfg.seed)
     last_loss = float("nan")
     for epoch in range(cfg.epochs):
         for b in dataset.batches(cfg.train_bsize, rng=rng, drop_last=False):
-            enc, dec_in, labels = (torch.from_numpy(np.asarray(b[k])).to(core.device)
-                                   for k in ("enc", "dec_in", "labels"))
-            loss = t5_oracle_loss(core, state.params, enc, dec_in, labels, generator)
-            (grads,) = value_and_grads(loss, (state.params,))
-            state.apply_gradients(grads)
-            last_loss = float(loss.detach())
+            batch = tuple(torch.from_numpy(np.asarray(b[k])).to(core.device) for k in ("enc", "dec_in", "labels"))
+            state, loss = step(state, batch, generator)
+            last_loss = float(loss)
         log(f"t5 oracle epoch {epoch}: loss={last_loss:.4f}")
-    return core, tokenizer, state.params, config
+    return core, tokenizer, state.model.params, config
 
 
 def train_and_save_oracle(
@@ -388,6 +408,7 @@ def train_and_save_oracle(
     tokenizer=None,
     arch: str = "decoder",
     device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
 ):
     """End-to-end: collect windows from the scripted teacher, BC-train,
     save under <save_dir>/oracle/{config.json,params.msgpack} in the JAX
@@ -400,7 +421,7 @@ def train_and_save_oracle(
         train = train_t5_oracle_lm
     else:
         train = train_oracle_lm
-    core, tokenizer, params, config = train(windows, cfg, tokenizer=tokenizer, device=device)
+    core, tokenizer, params, config = train(windows, cfg, tokenizer=tokenizer, device=device, mesh=mesh)
     dump_modules(
         save_dir,
         {"oracle": params},
@@ -409,9 +430,10 @@ def train_and_save_oracle(
     return core, tokenizer, params
 
 
-def load_oracle(save_dir: str, tokenizer=None, device: DeviceLike = None):
+def load_oracle(save_dir: str, tokenizer=None, device: DeviceLike = None, mesh: Optional[Mesh] = None):
     """Load a saved oracle LM (decoder or t5, written by either package) →
-    (core, tokenizer, params)."""
+    (core, tokenizer, params), the params sharded by their rules over
+    `mesh` when given."""
     tokenizer = tokenizer or ByteTokenizer()
     d = load_module_config(save_dir, "oracle")
     d.pop("task", None)
@@ -424,9 +446,11 @@ def load_oracle(save_dir: str, tokenizer=None, device: DeviceLike = None):
         params.load_state_dict(encdec_params_from_jax(tree))
     else:
         config = TransformerConfig.from_dict(d)
-        core = LMCore(config, device=device)
+        core = LMCore(config, device=device, mesh=mesh)
         params = init_params(config, device=core.device)
         params.load_state_dict(params_from_jax(tree, config))
+    if mesh is not None:
+        shard_module(params, mesh)
     return core, tokenizer, params
 
 

@@ -28,10 +28,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lmrl_gym_torch.core.device import inference
 from lmrl_gym_torch.core.random import categorical
 from lmrl_gym_torch.envs.wordle.vector import GREEN, N_CHARS, N_TRIES, YELLOW, WordleVectorEnv, initial_state
 from lmrl_gym_torch.models.interface import LMCore
 from lmrl_gym_torch.models.transformer import KVCache, mask_pad_logits
+from lmrl_gym_torch.parallel.mesh import Mesh, run_batch_sharded
 
 # Byte-tokenizer constants (token id == byte value)
 _SP, _NL = 32, 10
@@ -191,7 +193,7 @@ def _rollout_result(tokens, turn_reward, turn_live) -> WordleRollout:
     )
 
 
-@torch.inference_mode()
+@inference
 def rollout_wordle(
     env: WordleVectorEnv,
     step_fn: StepFn,
@@ -203,14 +205,23 @@ def rollout_wordle(
     constrain_vocab: bool = False,
     generator: Optional[torch.Generator] = None,
     noise: Optional[WordleNoise] = None,
+    mesh: Optional[Mesh] = None,
 ) -> WordleRollout:
     """6 turns of (10-token decode → env.step → 10-token feedback forward)
     for `batch` games, all on env's device.
+
+    Under a distributed `mesh` the games shard over the batch ranks:
+    `batch`, `init_carry` and `noise` are this rank's rows, the draws are
+    made over the global batch (so the ranks together play the unsharded
+    rollout's games), and the result's tensors are batch-sharded `DTensor`s.
 
     constrain_vocab masks each decode step to the wordle vocab trie:
     separator slots are forced, letter slots restricted to letters that
     extend some vocab word matching the sampled prefix. Sampling uses
     `generator`, or the replayed draws in `noise`."""
+    if mesh is not None and mesh.is_distributed:
+        return run_batch_sharded(rollout_wordle, mesh, batch, env, step_fn, params, init_carry, batch, temperature,
+                                 greedy, constrain_vocab, generator, noise)
     B = batch
     device = env.device
     tokens = _episode_tokens(B, device)
@@ -278,7 +289,7 @@ def rollout_wordle(
     return _rollout_result(tokens, turn_reward, turn_live)
 
 
-@torch.inference_mode()
+@inference
 def rollout_wordle_scripted(
     env: WordleVectorEnv,
     batch: int,
@@ -331,7 +342,7 @@ def rollout_wordle_scripted(
     return _rollout_result(tokens, turn_reward, turn_live)
 
 
-@torch.inference_mode()
+@inference
 def rollout_wordle_segmented(
     env: WordleVectorEnv,
     step_fn: StepFn,
@@ -391,7 +402,7 @@ class MarkovNoise(NamedTuple):
     env: Optional[torch.Tensor] = None
 
 
-@torch.inference_mode()
+@inference
 def rollout_markov(
     env,  # token env: obs_tokens(state), step(state, act_tokens, generator, noise), OBS_LEN, ACT_LEN
     n_turns: int,
@@ -403,12 +414,18 @@ def rollout_markov(
     greedy: bool = False,
     generator: Optional[torch.Generator] = None,
     noise: Optional[MarkovNoise] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[MarkovRollout, Any]:
     """n_turns of (observation prefill → ACT_LEN decode steps → env.step),
     the cache restarting from `init_carry` every turn. Every sampled token,
     the last included, goes through `step_fn`, as the JAX package's decode
     scan runs it. Sampling uses `generator`, or the replayed draws in
-    `noise`. Returns (MarkovRollout, final env state)."""
+    `noise`. Returns (MarkovRollout, final env state). Under a distributed
+    `mesh`, as `rollout_wordle`: the caller's rows, global draws, results
+    as batch-sharded `DTensor`s."""
+    if mesh is not None and mesh.is_distributed:
+        return run_batch_sharded(rollout_markov, mesh, state0.done.shape[0], env, n_turns, step_fn, params,
+                                 init_carry, state0, temperature, greedy, generator, noise)
     state = state0
     obs_t, act_t, rew_t, live_t, ill_t = [], [], [], [], []
     for t in range(n_turns):

@@ -11,10 +11,19 @@ a pickle of a plain dict) for resume.
 Modules are written under the flax key paths (`models/convert.py::
 params_to_jax`, `head_params_to_jax`), so the JAX package's
 `load_module_params(..., target=...)` reads the port's params files and
-the port reads the JAX package's. A train_state.msgpack holds `params`
-in that layout beside the port's own optimizer state, which is not
-optax's: it resumes port to port, and from a JAX train_state.msgpack the
-port reads only the `params` subtree, as `load_module_params` does.
+the port reads the JAX package's. A train_state.msgpack holds `params`,
+`opt_state` and `step` in optax's layout: the port's optimizer state has
+optax's tree (`core/optimizer.py`: chain tuples, `ScaleByAdamState`
+count/mu/nu, `ScaleByScheduleState`, `MultiStepsState`), so its moments
+and accumulators go under the flax key paths and its counts as int32
+scalars. A JAX train_state.msgpack thus resumes in the port with its
+moments and step, and the port's in JAX (`load_pytree` with optax's
+state as the target).
+
+Sharded modules (`parallel/mesh.py`) are gathered whole, on every rank,
+and written by the main process only, so a sharded save writes the
+unsharded save's bytes; a restore keeps each rank's block, and a sharded
+module's params are cut as they are read (`stream_sharding_fn`).
 """
 from __future__ import annotations
 
@@ -26,11 +35,21 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from lmrl_gym_torch.core.checkpointing import create_path, load_config, load_pytree, save_config, save_pytree
+from lmrl_gym_torch.core.checkpointing import (
+    create_path,
+    load_config,
+    load_pytree,
+    save_config,
+    save_pytree,
+    stream_sharding_fn,
+)
+from lmrl_gym_torch.core.io import is_main_process
 from lmrl_gym_torch.core.optimizer import TrainState
 from lmrl_gym_torch.models.convert import (
+    encdec_params_from_jax,
     encdec_params_to_jax,
     head_params_from_jax,
     head_params_to_jax,
@@ -39,6 +58,7 @@ from lmrl_gym_torch.models.convert import (
 )
 from lmrl_gym_torch.models.encdec import EncoderDecoder
 from lmrl_gym_torch.models.transformer import Transformer
+from lmrl_gym_torch.parallel.mesh import full_state_dict, gather_tree, is_sharded, load_state, shard_like
 
 
 @dataclass
@@ -74,16 +94,71 @@ class LoopState:
         return state
 
 
+def _to_flax(module: nn.Module):
+    """{port parameter name: tensor} → the flax tree of `module`'s kind."""
+    if isinstance(module, Transformer):
+        return lambda sd: params_to_jax(sd, module.config)
+    if isinstance(module, EncoderDecoder):
+        return encdec_params_to_jax
+    return head_params_to_jax
+
+
+def _from_flax(module: nn.Module):
+    if isinstance(module, Transformer):
+        return lambda tree: params_from_jax(tree, module.config)
+    if isinstance(module, EncoderDecoder):
+        return encdec_params_from_jax
+    return head_params_from_jax
+
+
 def module_tree(module: Any) -> Any:
     """A module's parameters as the flax param tree the JAX package saves
-    (a trunk, a T5 or a head); any other tree is saved as it is."""
-    if isinstance(module, Transformer):
-        return params_to_jax(module.state_dict(), module.config)
-    if isinstance(module, EncoderDecoder):
-        return encdec_params_to_jax(module.state_dict())
+    (a trunk, a T5 or a head; gathered whole when sharded); any other tree
+    is saved as it is."""
     if isinstance(module, nn.Module):
-        return head_params_to_jax(module.state_dict())
+        return _to_flax(module)(full_state_dict(module))
     return module
+
+
+def opt_state_to_jax(opt_state: Any, module: nn.Module) -> Any:
+    """The port's optimizer state as optax's tree: each per-parameter dict
+    as the module's flax tree (gathered whole), each count an int32 scalar."""
+    to_flax = _to_flax(module)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return to_flax(node)
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(x) for x in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(x) for x in node)
+        if isinstance(node, int):
+            return torch.tensor(node, dtype=torch.int32)
+        return node
+
+    return walk(gather_tree(opt_state))
+
+
+def opt_state_from_jax(template: Any, tree: Any, module: nn.Module) -> Any:
+    """Optax's state tree (nested dicts as `load_pytree` reads it) into the
+    structure of the port's `template` state, each tensor in its template's
+    device, dtype and layout (a rank's block when sharded)."""
+    from_flax = _from_flax(module)
+    device = next(module.parameters()).device
+
+    def walk(node, sub):
+        if isinstance(node, dict):
+            whole = from_flax(_on(sub, device))
+            return {k: shard_like(whole[k], t) for k, t in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(x, (sub or {}).get(f".{f}")) for f, x in zip(node._fields, node)))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(x, (sub or {}).get(str(i))) for i, x in enumerate(node))
+        if isinstance(node, int):
+            return int(sub)
+        return node
+
+    return walk(template, tree)
 
 
 def dump_modules(
@@ -94,22 +169,29 @@ def dump_modules(
     save_train_state: bool = False,
 ) -> None:
     """Write one subdir per module. TrainStates save their optimizer state
-    too when save_train_state, else params only."""
-    create_path(save_dir)
+    too when save_train_state, else params only. Every rank calls it (a
+    sharded module is gathered); the main process writes."""
+    main = is_main_process()
+    if main:
+        create_path(save_dir)
     for name, module in modules.items():
         if module is None:
             continue
-        mod_dir = create_path(os.path.join(save_dir, name))
-        if isinstance(module, TrainState):
-            if save_train_state:
-                save_pytree({"params": module_tree(module.params), "opt_state": module.opt_state, "step": module.step},
-                            os.path.join(mod_dir, "train_state.msgpack"), dtype=save_dtype)
-            else:
-                save_pytree(module_tree(module.params), os.path.join(mod_dir, "params.msgpack"), dtype=save_dtype)
+        mod_dir = os.path.join(save_dir, name)
+        if isinstance(module, TrainState) and save_train_state:
+            tree, path = {"params": module_tree(module.params),
+                          "opt_state": opt_state_to_jax(module.opt_state, module.params),
+                          "step": module.step}, "train_state.msgpack"
         else:
-            save_pytree(module_tree(module), os.path.join(mod_dir, "params.msgpack"), dtype=save_dtype)
-        if configs and name in configs:
-            save_config(configs[name], os.path.join(mod_dir, "config.json"))
+            params = module.params if isinstance(module, TrainState) else module
+            tree, path = module_tree(params), "params.msgpack"
+        if main:
+            create_path(mod_dir)
+            save_pytree(tree, os.path.join(mod_dir, path), dtype=save_dtype)
+            if configs and name in configs:
+                save_config(configs[name], os.path.join(mod_dir, "config.json"))
+    if dist.is_initialized():
+        dist.barrier()  # the files are there for every rank
 
 
 def load_module_params(save_dir: str, name: str, target: Any = None, sharding_fn=None) -> Any:
@@ -121,7 +203,9 @@ def load_module_params(save_dir: str, name: str, target: Any = None, sharding_fn
     if os.path.exists(params_path):
         return load_pytree(params_path, target=target, sharding_fn=sharding_fn)
     if os.path.exists(ts_path):
-        return load_pytree(ts_path, sharding_fn=sharding_fn)["params"]
+        params_only = None if sharding_fn is None else (
+            lambda key, a: sharding_fn(key, a) if key.startswith("params/") else a)
+        return load_pytree(ts_path, sharding_fn=params_only)["params"]
     raise FileNotFoundError(f"no checkpoint in {mod_dir}")
 
 
@@ -129,40 +213,49 @@ def load_module_config(save_dir: str, name: str) -> dict:
     return load_config(os.path.join(save_dir, name, "config.json"))
 
 
-def _place(loaded: Any, like: Any) -> Any:
-    """`loaded` (a tree of CPU tensors) on `like`'s devices and dtypes."""
-    if isinstance(like, torch.Tensor):
-        return loaded.to(like.device, like.dtype)
-    if isinstance(like, dict):
-        return {k: _place(loaded[k], v) for k, v in like.items()}
-    if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_place(a, b) for a, b in zip(loaded, like)))
-    if isinstance(like, (list, tuple)):
-        return type(like)(_place(a, b) for a, b in zip(loaded, like))
-    return loaded
+def _spec_by_key(module: nn.Module):
+    """flax key path → the module's rule spec (a checkpoint key may carry a
+    leading 'params/')."""
+    import re
+
+    rules = module.config.partition_rules()
+
+    def spec(key: str):
+        path = key.split("/", 1)[1] if key.startswith("params/") else key
+        return next(s for pattern, s in rules if re.search(pattern, path) is not None)
+
+    return spec
 
 
 def restore_module(save_dir: str, name: str, module: Any) -> Any:
     """Load a checkpointed module into the port's `module` in place: a
-    trunk or a head from its params tree, or a TrainState (its params,
-    and its optimizer state and step when a port train_state.msgpack is
-    there). Returns `module`."""
+    trunk, a T5 or a head from its params tree, or a TrainState (its
+    params, and its optimizer state and step when a train_state.msgpack —
+    the port's or the JAX package's — is there). A sharded module keeps
+    each rank's block, its params cut as they are read. Returns `module`."""
     state = module if isinstance(module, TrainState) else None
     target = state.params if state is not None else module
     ts_path = os.path.join(save_dir, name, "train_state.msgpack")
     if state is not None and os.path.exists(ts_path):
-        tree = load_pytree(ts_path, target={"params": module_tree(target), "opt_state": state.opt_state,
-                                            "step": state.step})
-        state.opt_state, state.step = _place(tree["opt_state"], state.opt_state), tree["step"]
+        tree = load_pytree(ts_path)
+        state.opt_state = opt_state_from_jax(state.opt_state, tree["opt_state"], target)
+        state.step = int(tree["step"])
         params = tree["params"]
     else:
-        params = load_module_params(save_dir, name)
-    if isinstance(target, Transformer):
-        sd = params_from_jax(params, target.config)
-    else:
-        sd = head_params_from_jax(params)
-    target.load_state_dict(sd)
+        sharding_fn = stream_sharding_fn(target.shard_mesh, _spec_by_key(target)) if is_sharded(target) else None
+        params = load_module_params(save_dir, name, sharding_fn=sharding_fn)
+    load_state(target, _from_flax(target)(_on(params, next(target.parameters()).device)))
     return module
+
+
+def _on(tree: Any, device) -> Any:
+    """A tree's CPU tensors on `device` (a rank's `DTensor` blocks stay), so
+    the layout conversions run there."""
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and not hasattr(tree, "device_mesh"):
+        return tree.to(device)
+    return tree
 
 
 class CheckpointManager:
@@ -185,16 +278,20 @@ class CheckpointManager:
         if self.save_dir is None:
             return None
         ckpt_dir = os.path.join(self.save_dir, tag)
-        if os.path.exists(ckpt_dir):
+        main = is_main_process()
+        if main and os.path.exists(ckpt_dir):
             shutil.rmtree(ckpt_dir)
         dump_modules(ckpt_dir, modules, configs, save_dtype, save_train_state)
-        loop_state.save(os.path.join(ckpt_dir, "loop_state.pkl"))
+        if main:
+            loop_state.save(os.path.join(ckpt_dir, "loop_state.pkl"))
         if rolling:
             loop_state.saved_checkpoints.append(ckpt_dir)
             if self.max_checkpoints is not None and len(loop_state.saved_checkpoints) > self.max_checkpoints:
                 old = loop_state.saved_checkpoints.popleft()
-                if os.path.exists(old):
+                if main and os.path.exists(old):
                     shutil.rmtree(old)
+        if dist.is_initialized():
+            dist.barrier()
         return ckpt_dir
 
 

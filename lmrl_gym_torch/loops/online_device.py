@@ -8,6 +8,12 @@ A round is one `rollout_wordle` of the shared-trunk β-perturbed policy
 place, so each round's rollouts are on-policy for the current weights; its
 device-resident tokens become an ILQL batch, sliced into minibatches by a
 random permutation. The only host work is loop control and metric fetches.
+
+Under a distributed `mesh` the rollout's games shard over the batch ranks
+(each rank plays its rows, the draws made over the whole batch), the
+rollout is gathered whole on every rank, and the sharded ILQL step takes
+each minibatch's rows rank by rank, as the JAX loop hands its mesh to the
+step.
 """
 from __future__ import annotations
 
@@ -20,6 +26,18 @@ from lmrl_gym_torch.algos.ilql import ILQLBatch, ILQLConfig, ILQLTrainState, mak
 from lmrl_gym_torch.envs.wordle.vector import WordleVectorEnv
 from lmrl_gym_torch.loops import actor as actor_mod
 from lmrl_gym_torch.models.interface import LMCore
+from lmrl_gym_torch.parallel.mesh import Mesh, Spec, batch_rows, gather_tree, local_shard
+
+_BATCH = ("dp", "fsdp")
+
+
+def _sharded_noise(noise, mesh: Optional[Mesh], batch_dims):
+    """This rank's rows of replayed rollout noise (the batch at dim
+    `batch_dims[i]` of field i)."""
+    if noise is None:
+        return None
+    return type(noise)(*(None if x is None else local_shard(x, mesh, Spec(*([None] * d), _BATCH))
+                         for x, d in zip(noise, batch_dims)))
 
 
 def wordle_rollout_to_ilql_batch(out: actor_mod.WordleRollout) -> ILQLBatch:
@@ -63,16 +81,18 @@ def online_ilql_wordle(
     config: OnlineDeviceConfig,
     generator: Optional[torch.Generator] = None,
     replay: Optional[List[RoundReplay]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[ILQLTrainState, list]:
     """Round-based online ILQL, rollouts and updates both on `env`'s device
-    → (final state, per-round metrics). `state` is trained in place.
+    → (final state, per-round metrics). `state` is trained in place (sharded
+    by `parallel/mesh.py::shard_train_state` under a distributed `mesh`).
     Sampling and permutations draw from `generator`, or round i replays
     `replay[i]`."""
     B = config.rollout_batch
     step_fn, carry0 = actor_mod.make_value_guided_step_fn(
-        core, batch=B, two_trunks=False, twin_q=True, beta=ilql_config.beta
+        core, batch=batch_rows(mesh, B), two_trunks=False, twin_q=True, beta=ilql_config.beta
     )
-    train_step = make_ilql_train_step(core, ilql_config, config.pad_token_id)
+    train_step = make_ilql_train_step(core, ilql_config, config.pad_token_id, mesh)
 
     history: list = []
     for rnd in range(config.n_rounds):
@@ -81,9 +101,11 @@ def online_ilql_wordle(
         # index 0, so each rollout starts them afresh
         policy = {"base": state.base.params, "q1": state.q1_head.params, "q2": state.q2_head.params}
         out = actor_mod.rollout_wordle(
-            env, step_fn, policy, carry0, B, config.temperature, False,
-            generator=generator, noise=None if replay is None else replay[rnd].noise,
+            env, step_fn, policy, carry0, batch_rows(mesh, B), config.temperature, False,
+            generator=generator, noise=_sharded_noise(None if replay is None else replay[rnd].noise, mesh, (2, 1)),
+            mesh=mesh,
         )
+        out = gather_tree(out)
         batch = wordle_rollout_to_ilql_batch(out)
 
         losses = []
@@ -172,6 +194,7 @@ def online_ilql_markov(
     pi_beta: Optional[torch.nn.Module] = None,
     generator: Optional[torch.Generator] = None,
     replay: Optional[List[MarkovRoundReplay]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[ILQLTrainState, list]:
     """Round-based online ILQL over a Markov token env, rollouts and updates
     on `env`'s device → (final state, per-round metrics); `state` is trained
@@ -185,13 +208,14 @@ def online_ilql_markov(
     as the live windows fill: an all-dead minibatch has zero loss, but
     AdamW would still step on stale momentum and weight decay and the
     polyak target would still mix. Draws come from `generator`, or round i
-    replays `replay[i]`."""
+    replays `replay[i]`. Under a distributed `mesh`, as `online_ilql_wordle`
+    (every rank resets the whole batch and plays its rows)."""
     B = config.rollout_batch
     step_fn, carry0 = actor_mod.make_value_guided_step_fn(
-        core, batch=B, two_trunks=pi_beta is not None, twin_q=True, beta=ilql_config.beta,
+        core, batch=batch_rows(mesh, B), two_trunks=pi_beta is not None, twin_q=True, beta=ilql_config.beta,
         total_len=env.OBS_LEN + env.ACT_LEN,
     )
-    train_step = make_ilql_train_step(core, ilql_config, config.pad_token_id)
+    train_step = make_ilql_train_step(core, ilql_config, config.pad_token_id, mesh)
 
     history: list = []
     for rnd in range(config.n_rounds):
@@ -199,9 +223,11 @@ def online_ilql_markov(
         if pi_beta is not None:
             policy["pi_beta"] = pi_beta
         rep = None if replay is None else replay[rnd]
-        state0 = env.reset(B, generator, None if rep is None else rep.reset)
+        state0 = local_shard(env.reset(B, generator, None if rep is None else rep.reset), mesh, Spec(_BATCH))
         out, _ = actor_mod.rollout_markov(env, n_turns, step_fn, policy, carry0, state0, config.temperature, False,
-                                          generator=generator, noise=None if rep is None else rep.noise)
+                                          generator=generator, mesh=mesh,
+                                          noise=_sharded_noise(None if rep is None else rep.noise, mesh, (2, 1)))
+        out = gather_tree(out)
         batch = markov_rollout_to_ilql_batch(out)
         n_windows = batch.input_ids.shape[0]
         live_flat = out.turn_live.reshape(-1)

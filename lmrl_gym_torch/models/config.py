@@ -1,15 +1,18 @@
 """Decoder-only transformer configuration.
 
 The port's copy of `lmrl_gym_tpu/models/config.py`: the same fields,
-derived sizes, presets and dict round-trip, so a saved `config.json`
-crosses between the two packages. The mesh partition rules stay with the
-JAX package; the port has no mesh yet.
+derived sizes, presets, dict round-trip and mesh partition rules, so a
+saved `config.json` crosses between the two packages. The rules are the
+JAX table over flax key paths; `parallel/mesh.py::match_partition_rules`
+transposes a kernel's spec onto the port's [out, in] weight.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
+
+from lmrl_gym_torch.parallel.mesh import Spec
 
 
 @dataclass(frozen=True)
@@ -72,6 +75,26 @@ class TransformerConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "TransformerConfig":
         return cls(**{k: v for k, v in d.items() if k in {f.name for f in dataclasses.fields(cls)}})
+
+    def partition_rules(self) -> Tuple[Tuple[str, Spec], ...]:
+        """regex → Spec over flax key paths, the JAX package's table: 2-D
+        weights (fsdp, mp) or (mp, fsdp), embeddings sharded over their
+        vocab or position dim, everything else replicated."""
+        return (
+            ("wte/embedding", Spec(("mp", "fsdp"), None)),
+            ("wpe/embedding", Spec(("mp", "fsdp"), None)),
+            ("attn/qkv/kernel", Spec("fsdp", "mp")),
+            ("attn/out/kernel", Spec("mp", "fsdp")),
+            ("mlp/fc/kernel", Spec("fsdp", "mp")),
+            ("mlp/gate/kernel", Spec("fsdp", "mp")),
+            ("mlp/proj/kernel", Spec("mp", "fsdp")),
+            ("attn/qkv/bias", Spec("mp")),
+            ("mlp/fc/bias", Spec("mp")),
+            ("lm_head/kernel", Spec("fsdp", "mp")),
+            (".*bias", Spec()),
+            (".*scale", Spec()),
+            (".*", Spec()),
+        )
 
 
 def gpt2_small() -> TransformerConfig:

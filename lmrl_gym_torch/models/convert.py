@@ -31,8 +31,8 @@ from lmrl_gym_torch.models.config import TransformerConfig
 
 
 def _t(a) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.detach().to("cpu", torch.float32, copy=True)
+    if isinstance(a, torch.Tensor):  # stays where it is: a rank's block on its mesh, a device tensor on its card
+        return a.detach().to(dtype=torch.float32, copy=True)
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
@@ -80,7 +80,7 @@ def head_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def _to_dense(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
-    node = {"kernel": sd[f"{prefix}.weight"].detach().cpu().T.contiguous()}
+    node = {"kernel": sd[f"{prefix}.weight"].detach().T.contiguous().cpu()}  # transposed where it lives
     if f"{prefix}.bias" in sd:
         node["bias"] = sd[f"{prefix}.bias"].detach().cpu()
     return node
@@ -214,15 +214,15 @@ def encdec_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
     tree: Dict[str, dict] = {}
     for key, t in sd.items():
         mods = re.sub(r"^(enc|dec)_blocks\.(\d+)", r"\1_blocks_\2", key[: -len(".weight")]).split(".")
-        t = t.detach().cpu()
+        t = t.detach()
         if mods[-1] in ("shared", "enc_rel_bias", "dec_rel_bias"):
             name = "embedding"
         elif mods[-1].startswith("ln") or mods[-1].endswith("ln_f"):
             name = "scale"
         else:
-            name, t = "kernel", t.T.contiguous()
+            name, t = "kernel", t.T.contiguous()  # transposed where it lives
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
-        node[name] = t
+        node[name] = t.cpu()
     return tree

@@ -44,6 +44,7 @@ from torch import nn
 
 from lmrl_gym_torch.core.device import DeviceLike, resolve_device, torch_dtype
 from lmrl_gym_torch.models.transformer import KVCache, RMSNorm, dense, dropout, mask_pad_logits
+from lmrl_gym_torch.parallel.mesh import Spec
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -92,6 +93,20 @@ class EncDecConfig:
     def from_dict(cls, d: dict) -> "EncDecConfig":
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
+
+    def partition_rules(self) -> Tuple[Tuple[str, Spec], ...]:
+        """The JAX package's table over flax key paths."""
+        return (
+            ("shared/embedding", Spec("mp", "fsdp")),
+            ("rel_bias/embedding", Spec()),
+            ("/(q|k|v)/kernel", Spec("fsdp", "mp")),
+            ("/o/kernel", Spec("mp", "fsdp")),
+            ("wi(_0|_1)?/kernel", Spec("fsdp", "mp")),
+            ("wo/kernel", Spec("mp", "fsdp")),
+            ("lm_head/kernel", Spec("fsdp", "mp")),
+            (".*scale", Spec()),
+            (".*", Spec()),
+        )
 
 
 def t5_small() -> EncDecConfig:

@@ -21,6 +21,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from lmrl_gym_torch.core.device import inference
 from lmrl_gym_torch.core.random import categorical
 
 
@@ -137,7 +138,7 @@ def _decode(
     return torch.stack(tokens, dim=1), torch.stack(token_mask, dim=1)
 
 
-@torch.inference_mode()
+@inference
 def generate(
     logits_fn: LogitsFn,
     init_carry: Any,
@@ -155,7 +156,7 @@ def generate(
     return _decode(logits_fn, init_carry, prompt_ids, prompt_mask, config, generator, gumbel)
 
 
-@torch.inference_mode()
+@inference
 def generate_constrained(
     logits_fn: LogitsFn,
     init_carry: Any,

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +27,7 @@ from torch import nn
 
 from lmrl_gym_torch.core.device import DeviceLike, resolve_device, torch_dtype
 from lmrl_gym_torch.models.transformer import dense, dropout
+from lmrl_gym_torch.parallel.mesh import Spec
 
 MATMUL_PRECISIONS = ("float32", "bfloat16")
 
@@ -82,6 +83,9 @@ class LinearHeadConfig:
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    def partition_rules(self) -> Tuple[Tuple[str, Spec], ...]:
+        return ((".*", Spec()),)  # replicated, as in the JAX package
+
 
 class LinearHead(nn.Module):
     def __init__(
@@ -125,6 +129,15 @@ class MLPHeadConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def partition_rules(self) -> Tuple[Tuple[str, Spec], ...]:
+        """The JAX package's table over flax key paths."""
+        return (
+            ("dense1/kernel", Spec("fsdp", "mp")),
+            ("dense2/kernel", Spec("mp", "fsdp")),
+            ("dense1/bias", Spec("mp")),
+            (".*", Spec()),
+        )
 
 
 class MLPHead(nn.Module):

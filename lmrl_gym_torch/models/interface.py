@@ -16,8 +16,10 @@ from typing import Optional, Tuple
 import torch
 
 from lmrl_gym_torch.core.device import DeviceLike, resolve_device
+from lmrl_gym_torch.core.random import sharded_draws
 from lmrl_gym_torch.models.config import TransformerConfig
 from lmrl_gym_torch.models.transformer import KVCache, Transformer, mask_pad_logits
+from lmrl_gym_torch.parallel.mesh import Mesh, Spec, gather_shards, local_shard
 
 
 def initialize_attn_mask_pos_ids(
@@ -53,12 +55,18 @@ def cached_positions(attn_mask: torch.Tensor, T: int, next_pos: torch.Tensor):
 
 
 class LMCore:
-    """The (config, device) a model runs with; parameters are a
-    `Transformer` module passed to each call."""
+    """The (config, device, mesh) a model runs with; parameters are a
+    `Transformer` module passed to each call.
 
-    def __init__(self, config: TransformerConfig, device: DeviceLike = None):
+    With a `mesh` whose sp axis spans more than one rank, `forward` hands
+    the trunk this rank's slice of the sequence (ring attention inside,
+    draws over the whole sequence) and gathers the logits and hidden states
+    whole again; otherwise the mesh changes nothing here."""
+
+    def __init__(self, config: TransformerConfig, device: DeviceLike = None, mesh: Optional[Mesh] = None):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     def forward(
         self,
@@ -78,12 +86,25 @@ class LMCore:
         attention_mask, position_ids = initialize_attn_mask_pos_ids(
             input_ids, pad_token_id, attention_mask, position_ids
         )
+        sp = self.mesh.axis_size("sp") if self.mesh is not None else 1
         with contextlib.nullcontext() if train else torch.no_grad():
-            logits, hidden, _ = params(
-                input_ids, attention_mask=attention_mask, position_ids=position_ids,
-                deterministic=not train, generator=generator,
-            )
-        return logits, hidden
+            if sp == 1:
+                logits, hidden, _ = params(
+                    input_ids, attention_mask=attention_mask, position_ids=position_ids,
+                    deterministic=not train, generator=generator,
+                )
+                return logits, hidden
+            if input_ids.shape[1] % sp:
+                raise ValueError(f"a window of {input_ids.shape[1]} tokens does not divide over {sp} sp ranks")
+            seq = Spec(None, "sp")
+            ids, mask, pos = local_shard((input_ids, attention_mask, position_ids), self.mesh, seq)
+            T = input_ids.shape[1]
+            with sharded_draws((None, (self.mesh.coord("sp") * (T // sp), T))):
+                logits, hidden, _ = params(
+                    ids, attention_mask=mask, position_ids=pos, deterministic=not train, generator=generator,
+                    mesh=self.mesh,
+                )
+            return gather_shards(logits, self.mesh, seq), gather_shards(hidden, self.mesh, seq)
 
     def make_lm_logits_fn(self, params: Transformer, total_len: int, batch: int):
         """(logits_fn, init_carry) for models.generation.generate.

@@ -50,10 +50,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from lmrl_gym_torch.core.device import DeviceLike, resolve_device, torch_dtype
+from lmrl_gym_torch.core.random import draw_uniform
 from lmrl_gym_torch.models.config import TransformerConfig
 from lmrl_gym_torch.ops.decode_attention import decode_attention
 from lmrl_gym_torch.ops.flash_attention import _NEG_BIG as _MASK_BIAS
 from lmrl_gym_torch.ops.flash_attention import flash_attention
+from lmrl_gym_torch.parallel.mesh import Mesh
+from lmrl_gym_torch.parallel.ring_attention import make_ring_attention
 
 
 @dataclass(frozen=True, eq=False)  # tensor fields: identity, not elementwise ==
@@ -104,7 +107,7 @@ def dropout(
     1/(1 − rate). `keep` replays another run's mask in place of a draw
     from `generator`."""
     if keep is None:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+        keep = draw_uniform(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep.to(x.device), x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -204,6 +207,7 @@ class Attention(nn.Module):
         layer_cache: Optional[Tuple[torch.Tensor, torch.Tensor, int]],  # (k, v, index)
         drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,  # residual dropout
         attn_drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,  # probability dropout (training)
+        ring: Optional[Callable] = None,  # ring attention over the sp ranks (sequence-sharded x)
     ) -> torch.Tensor:
         cfg = self.config
         B, T, D = x.shape
@@ -222,7 +226,9 @@ class Attention(nn.Module):
             k = apply_rotary(k, position_ids, rd, cfg.rotary_base, cfg.rotary_interleaved)
 
         sm_scale = 1.0 / math.sqrt(Dh)
-        if layer_cache is None and attn_drop is not None:
+        if ring is not None and layer_cache is None:
+            out = ring(q, k, v, bias)
+        elif layer_cache is None and attn_drop is not None:
             out = attention_with_dropout(q, k, v, bias, sm_scale, dtype, attn_drop)
         elif layer_cache is None:
             out = flash_attention(q, k, v, bias, causal=True, sm_scale=sm_scale)
@@ -322,9 +328,9 @@ class Block(nn.Module):
             self.ln_2 = _norm(config, device, dtype)
         self.mlp = MLP(config, device, dtype)
 
-    def forward(self, x, bias, position_ids, layer_cache, drop=None, attn_drop=None):
+    def forward(self, x, bias, position_ids, layer_cache, drop=None, attn_drop=None, ring=None):
         h = self.ln_1(x)
-        attn_out = self.attn(h, bias, position_ids, layer_cache, drop, attn_drop)
+        attn_out = self.attn(h, bias, position_ids, layer_cache, drop, attn_drop, ring)
         if self.config.parallel_ffn:
             # GPT-J: mlp reads the same normed input; one residual add
             return x + attn_out + self.mlp(h, drop)
@@ -337,7 +343,16 @@ class Transformer(nn.Module):
 
     Built on `device` (default `cuda`; raises without one) with parameters
     in `dtype`, initialized as the flax module is (normal(initializer_range)
-    weights and embeddings, zero biases, unit norm scales) from `seed`."""
+    weights and embeddings, zero biases, unit norm scales) from `seed`.
+
+    Given a `mesh` with an sp axis over more than one rank, the forward
+    holds the rank's slice of the sequence (`LMCore.forward` cuts it) and
+    its no-cache attention runs as ring attention over the sp ranks, under
+    the JAX package's condition (`sequence_parallel`, no cache, no
+    attention dropout)."""
+
+    # under sp its forward runs on the rank's sequence slice (parallel/mesh.py)
+    sequence_sharded = True
 
     def __init__(
         self,
@@ -379,6 +394,7 @@ class Transformer(nn.Module):
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,  # dropout masks when training
         attn_keep: Optional[Sequence[torch.Tensor]] = None,  # replayed attention keep masks, one per layer
+        mesh: Optional[Mesh] = None,
     ):
         """`attn_keep` replays the attention-probability keep masks (bool
         [B, H, T, T] per layer, True = kept) in place of draws from
@@ -389,6 +405,12 @@ class Transformer(nn.Module):
         train_drop = not deterministic and max(cfg.embd_pdrop, cfg.resid_pdrop) > 0
         if (train_drop or (attn_dropout and attn_keep is None)) and generator is None:
             raise ValueError("dropout in training (deterministic=False) draws its masks from `generator`; pass one")
+        ring = None
+        if mesh is not None and mesh.axis_size("sp") > 1 and cache is None:
+            if not cfg.sequence_parallel or attn_dropout:
+                raise ValueError("an sp axis runs the trunk as ring attention: it needs sequence_parallel=True "
+                                 "and no attention dropout")
+            ring = make_ring_attention(mesh, sm_scale=1.0 / math.sqrt(cfg.head_dim))
         B, T = input_ids.shape
         dtype = torch_dtype(cfg.dtype)
         start = cache.index if cache is not None else 0
@@ -415,7 +437,7 @@ class Transformer(nn.Module):
             if attn_dropout and cache is None:
                 attn_drop = functools.partial(dropout, rate=cfg.attn_pdrop, generator=generator,
                                               keep=None if attn_keep is None else attn_keep[i])
-            x = block(x, bias, position_ids, layer_cache, drop, attn_drop)
+            x = block(x, bias, position_ids, layer_cache, drop, attn_drop, ring)
         x = self.ln_f(x)
 
         if cfg.tie_word_embeddings:

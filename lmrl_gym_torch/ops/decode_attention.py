@@ -22,6 +22,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from lmrl_gym_torch.ops import _build
 
@@ -75,6 +76,8 @@ def _check_cuda_inputs(q, k, v, index, bias):
     # each lane reads 8 consecutive elements of a cache row with 16-byte loads
     align = 16 // k.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
+        if isinstance(t, DTensor):  # the kernel reads raw pointers: a rank's plain local block only
+            raise TypeError(f"decode_attn: {name} is a DTensor; pass the local tensor")
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"decode_attn: {name} is not on {q.device}")
         if t.stride(3) != 1:

@@ -37,6 +37,7 @@ import ctypes
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from lmrl_gym_torch.ops import _build
 
@@ -206,6 +207,8 @@ def _check_cuda_inputs(q, k, v, bias):
     if Tq > S:
         raise ValueError(f"flash_fwd: {Tq} queries over {S} keys (queries are right-aligned)")
     for name, t in (("q", q), ("k", k), ("v", v)):
+        if isinstance(t, DTensor):  # the kernel reads raw pointers: a rank's plain local block only
+            raise TypeError(f"flash_fwd: {name} is a DTensor; pass the local tensor")
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_fwd: {name} is not on {q.device}")
         if t.stride(3) != 1:

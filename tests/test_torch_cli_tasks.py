@@ -131,11 +131,13 @@ def test_evaluate_parse_args_match(argv):
 
 
 def test_mesh_fits_one_device_or_raises():
+    """Without a process group the run is one rank: a shape that fits it
+    gives a one-rank mesh, any other raises."""
     for mesh in ("1,-1,1", "1,1,1", "-1,1,1"):
-        ttrain.check_mesh(mesh)
+        assert ttrain.check_mesh(mesh, "cpu").size == 1
     for mesh in ("2,-1,1", "1,2,1", "1,1,4", "-1,-1,1"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ttrain.check_mesh(mesh)
+        with pytest.raises(ValueError, match="--mesh"):
+            ttrain.check_mesh(mesh, "cpu")
 
 
 def test_wordle_filtered_vocab_matches_the_loop():
