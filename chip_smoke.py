@@ -27,6 +27,15 @@ Phases, each of which exits non-zero on failure:
    cotangent, held against the plain version with P and dS rounded to
    bf16 (the kernels' arithmetic), its drift from the f32-P plain version
    printed;
+2j. K1 and K4 at GPT-J-6B's head width (Dh = 256, H = 16), bf16, against
+   their plain versions (`phase_gptj_kernel_checks`): K1 on its
+   tensor-core route at the rollout's shapes (B=256: the header prefill
+   Tq=S=8 and the appends Tq=10 over S=28..128 of a 128-slot cache) and
+   the served Text-Nav prefill (B=16, Tq=S=640 of a 676-slot cache, with
+   and without left padding), each with kernel, plain, SDPA and CUDA-core
+   variant ms and the bound; K4 at indices 8, 67 and 127 (B=256) and at
+   every third fill of the rollout and of the turn (B=16, left-padded),
+   with kernel, plain and SDPA ms and the bound;
 2p. K1 and K4 against their plain versions at the later paths' shapes,
    bf16: the online rollout (B=256, H=12) and the gate's evals (B=512,
    H=4) on cache views, the text env's and LMServer's left-padded prefill
@@ -188,6 +197,19 @@ Phases, each of which exits non-zero on failure:
    V head's sharded train-state write byte-identical to the unsharded
    write and its stream-sharded read; ring attention over a one-rank sp
    mesh at the Text-Nav windows' shapes against K1 (`phase_sharded`);
+3j. GPT-J-6B's value-guided serving at full width and depth (slice 12;
+   `gptj_6b`: vocab 50,400 padded to 50,432, 28 layers, d 4096, 16 heads
+   of 256, rotary_dim 64 interleaved, parallel FFN, untied lm_head; bf16
+   weights from a seed): two trunks, twin MLP Q heads (f32, hidden 8,192),
+   beta=32. The fused Wordle rollout at B=256 on the constrained vocab —
+   one warm-up, two timed with exact launches (K1 392, all on the tensor
+   cores; K4 3,360), its invariants, env-steps/s, tokens/s and peak
+   memory, one profiled by kernel category — then, its caches freed, a
+   served Text-Nav turn (`ValueGuidedServer.generate_from_strs`, B=16
+   `TextNavEnv` histories left-padded or cut to 640 byte tokens, 36
+   sampled new tokens; K1 56 and K4 2,016), one warm-up and two timed;
+   and the trunk cut to 2 layers at full width, bf16 on the card against
+   f32 on the CPU (logits within LOGIT_TOL; `phase_gptj`);
 4. the same full-width serving weights at B=4 on the card (kernels, bf16)
    against the CPU (plain path, f32): header prefill plus 3 decode steps;
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
@@ -209,7 +231,10 @@ Phases, each of which exits non-zero on failure:
    the guided chess rollout (3u's), an online Markov round and step, the cut
    chess gate; and slice 9's: a 3d asker turn and decoder-oracle turn, the
    three cut dialog gates; and slice 10's: the 3i train CLI run and the
-   evaluate CLI run). Every kernel with two
+   evaluate CLI run; slice 11's sharded step; and slice 12's GPT-J rollout
+   and Text-Nav turn, with K1's and K4's per-launch means over those
+   paths' Dh = 256 shapes from 2j under `*_gptj_rollout` and
+   `*_gptj_turn`). Every kernel with two
    variants carries the `variant` its main path runs and its `tc_launches`; and beside SDPA's backward
    (`library_ms`, which computes its own rowsum(dO ⊙ O)) the port's Δ pass
    (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`).
@@ -274,6 +299,7 @@ from lmrl_gym_torch.envs.chess.vector import ChessEndgameVectorEnv
 from lmrl_gym_torch.envs.maze.eval import per_cell_optimal_move_accuracy
 from lmrl_gym_torch.envs.maze.grids import ACTION_STRS, DOUBLE_T_GOAL, double_t_maze
 from lmrl_gym_torch.envs.maze.vector import MazeTokenVecEnv, MazeVectorEnv
+from lmrl_gym_torch.envs.text_nav.env import TextNavEnv, WalkthroughAgent
 from lmrl_gym_torch.envs.wordle.env import ReformatWordleEnv, WordleEnv
 from lmrl_gym_torch.envs.wordle.vector import N_TRIES, WordleVectorEnv, WordleVocab
 from lmrl_gym_torch.loops import actor, online_device
@@ -289,7 +315,7 @@ from lmrl_gym_torch.loops.online_device import (
     wordle_rollout_to_ilql_batch,
 )
 from lmrl_gym_torch.envs.lm_oracle import build_lm_twenty_questions_env
-from lmrl_gym_torch.models.config import gpt2_small
+from lmrl_gym_torch.models.config import gpt2_small, gptj_6b
 from lmrl_gym_torch.models.encdec import EncDecCore, EncoderDecoder, T5Attention, flan_t5_xl
 from lmrl_gym_torch.models.generation import SamplingConfig
 from lmrl_gym_torch.models.heads import LinearHead, LinearHeadConfig, MLPHead, MLPHeadConfig
@@ -335,6 +361,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 B, H, DH, T_MAX = 512, 12, 64, actor.EPISODE_LEN
+GPTJ_H, GPTJ_DH = 16, 256  # GPT-J-6B's heads and head width (phases 2j, 3j)
 # kernel vs plain: |kernel − plain| ≤ atol + rtol·|plain|. f32: summation
 # order only. bf16: two bf16 ulps, since both round the output (and the
 # plain version its probabilities) to bf16.
@@ -426,34 +453,35 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def flash_work(Tq: int, S: int, dtype) -> tuple:
+def flash_work(b: int, h: int, dh: int, Tq: int, S: int, dtype) -> tuple:
     """Bytes (each input read once, each output written once) and FLOPs of
-    one causal flash forward without bias: QKᵀ and PV over the visible
-    (query, key) pairs."""
+    one causal flash forward of shape (b, h, Tq, S, dh) without bias: QKᵀ
+    and PV over the visible (query, key) pairs."""
     es = torch.finfo(dtype).bits // 8
-    n_bytes = es * B * H * DH * (2 * Tq + 2 * S) + 4 * B * H * Tq
+    n_bytes = es * b * h * dh * (2 * Tq + 2 * S) + 4 * b * h * Tq
     pairs = sum(S - Tq + i + 1 for i in range(Tq))
-    return n_bytes, 4.0 * B * H * DH * pairs
+    return n_bytes, 4.0 * b * h * dh * pairs
 
 
-def decode_work(n_keys: int, dtype) -> tuple:
-    """Bytes and FLOPs of one decode step over n_keys cache slots, no bias."""
+def decode_work(b: int, h: int, dh: int, n_keys: int, dtype) -> tuple:
+    """Bytes and FLOPs of one decode step of shape (b, h, dh) over n_keys
+    cache slots, no bias."""
     es = torch.finfo(dtype).bits // 8
-    n_bytes = es * B * H * DH * (2 + 2 * n_keys)
-    return n_bytes, 4.0 * B * H * DH * n_keys
+    n_bytes = es * b * h * dh * (2 + 2 * n_keys)
+    return n_bytes, 4.0 * b * h * dh * n_keys
 
 
-def bwd_work(b: int, Tq: int, S: int, dtype, kernel: str, with_bias: bool) -> tuple:
+def bwd_work(b: int, h: int, dh: int, Tq: int, S: int, dtype, kernel: str, with_bias: bool) -> tuple:
     """Bytes and FLOPs of one backward kernel over the causal (query, key)
     pairs. Both read q, k, v, dO, lse and Δ (and the bias when given); K2
     writes dQ and does QKᵀ, dO·Vᵀ and dS·K (6·Dh FLOPs per pair), K3 writes
     dK and dV and adds Pᵀ·dO and dSᵀ·Q (8·Dh per pair)."""
     es = torch.finfo(dtype).bits // 8
-    n_q, n_kv = b * H * Tq * DH, b * H * S * DH
-    n_bytes = es * (2 * n_q + 2 * n_kv) + 4 * 2 * b * H * Tq + (4 * b * S if with_bias else 0)
+    n_q, n_kv = b * h * Tq * dh, b * h * S * dh
+    n_bytes = es * (2 * n_q + 2 * n_kv) + 4 * 2 * b * h * Tq + (4 * b * S if with_bias else 0)
     n_bytes += es * (n_q if kernel == "dq" else 2 * n_kv)
-    pairs = b * H * sum(S - Tq + i + 1 for i in range(Tq))
-    return n_bytes, (6.0 if kernel == "dq" else 8.0) * DH * pairs
+    pairs = b * h * sum(S - Tq + i + 1 for i in range(Tq))
+    return n_bytes, (6.0 if kernel == "dq" else 8.0) * dh * pairs
 
 
 @contextlib.contextmanager
@@ -462,7 +490,7 @@ def forced_variant(variant: str):
     CUDA-core forward that the tensor-core one replaced on the main paths,
     in the same run and on the same inputs."""
     picked = flash_module._variant
-    flash_module._variant = lambda dtype, head_dim: variant
+    flash_module._variant = lambda dtype, head_dim, name: variant
     try:
         yield
     finally:
@@ -520,17 +548,17 @@ def phase_device() -> str:
     return card
 
 
-def _flash_inputs(Tq, S, dtype, padded, gen, b=B, h=H, t_max=None):
-    """q [b,h,Tq,DH], k/v [b,h,S,DH] and a left-pad bias [b,S]; with
+def _flash_inputs(Tq, S, dtype, padded, gen, b=B, h=H, t_max=None, dh=DH):
+    """q [b,h,Tq,dh], k/v [b,h,S,dh] and a left-pad bias [b,S]; with
     `t_max`, as the cached trunk passes them: q a view into the fused
-    [b,Tq,3·h·DH] projection, k/v the filled prefix of a [b,h,t_max,DH]
+    [b,Tq,3·h·dh] projection, k/v the filled prefix of a [b,h,t_max,dh]
     cache and the bias the prefix of a [b,t_max] one."""
     if t_max is None:
-        q = torch.randn(b, h, Tq, DH, device="cuda", generator=gen).to(dtype)
+        q = torch.randn(b, h, Tq, dh, device="cuda", generator=gen).to(dtype)
     else:
-        q = torch.randn(b, Tq, 3, h, DH, device="cuda", generator=gen).to(dtype)[:, :, 0].transpose(1, 2)
-    k = torch.randn(b, h, t_max or S, DH, device="cuda", generator=gen).to(dtype)[:, :, :S]
-    v = torch.randn(b, h, t_max or S, DH, device="cuda", generator=gen).to(dtype)[:, :, :S]
+        q = torch.randn(b, Tq, 3, h, dh, device="cuda", generator=gen).to(dtype)[:, :, 0].transpose(1, 2)
+    k = torch.randn(b, h, t_max or S, dh, device="cuda", generator=gen).to(dtype)[:, :, :S]
+    v = torch.randn(b, h, t_max or S, dh, device="cuda", generator=gen).to(dtype)[:, :, :S]
     bias = None
     if padded:
         n_pad = torch.randint(0, S, (b,), device="cuda", generator=gen)
@@ -539,10 +567,10 @@ def _flash_inputs(Tq, S, dtype, padded, gen, b=B, h=H, t_max=None):
     return q, k, v, bias
 
 
-def _decode_inputs(index, dtype, padded, gen, b=B, h=H, t_max=T_MAX, max_pad=None):
-    q = torch.randn(b, h, 1, DH, device="cuda", generator=gen).to(dtype)
-    k = torch.randn(b, h, t_max, DH, device="cuda", generator=gen).to(dtype)
-    v = torch.randn(b, h, t_max, DH, device="cuda", generator=gen).to(dtype)
+def _decode_inputs(index, dtype, padded, gen, b=B, h=H, t_max=T_MAX, max_pad=None, dh=DH):
+    q = torch.randn(b, h, 1, dh, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, h, t_max, dh, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, h, t_max, dh, device="cuda", generator=gen).to(dtype)
     bias = None
     if padded:  # key `index` stays visible
         n_pad = torch.randint(0, min(index, max_pad or index) + 1, (b,), device="cuda", generator=gen)
@@ -573,7 +601,7 @@ def _check_fwd(q, k, v, bias, rows, dtype, label: str) -> tuple:
     tc0 = flash_fwd.tc_launches
     out, lse = flash_fwd(q, k, v, bias, True, scale)
     n_tc = flash_fwd.tc_launches - tc0
-    want_tc = int(_variant(dtype, q.shape[-1]) == "tc")
+    want_tc = int(_variant(dtype, q.shape[-1], "flash_fwd") == "tc")
     check(n_tc == want_tc, f"flash_fwd {label} {dtype}: tensor-core launches {n_tc}, want {want_tc}")
     ref, ref_lse = _plain_attention(q, k, v, bias, True, scale)
     torch.cuda.synchronize()
@@ -703,7 +731,9 @@ def _tc_counts():
 # 160 tokens of the PPO steps and the PPO forward (B=32, H=12) and of the
 # maze gate's train steps (d256 H4: B=32, H=4), and the Text-Nav windows
 # blocked to 640 tokens of phase 3n's PPO steps and forwards (B=32, H=12)
-# and of the Text-Nav gate's (d256 H4)
+# and of the Text-Nav gate's (d256 H4), and GPT-J's head width (B=4,
+# H=16, Dh=256, T=160 left-padded: K1 on the tensor cores in bf16 writes
+# the lse that K2/K3 read on their CUDA-core route)
 BWD_REPS = 5  # phase 2's per-case backward timings
 BWD_CASES = (
     (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, False), (TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
@@ -711,6 +741,7 @@ BWD_CASES = (
     (TRAIN_B, H, DH, 100, 100, True), (TRAIN_B, H, DH, 37, 100, False), (4, 32, 128, 160, 160, True),
     (TRAIN_B, H, DH, MAZE_LEN, MAZE_LEN, "right"), (TRAIN_B, 4, DH, MAZE_LEN, MAZE_LEN, "right"),
     (TRAIN_B, H, DH, TN_LEN, TN_LEN, "right"), (TRAIN_B, 4, DH, TN_LEN, TN_LEN, "right"),
+    (4, GPTJ_H, GPTJ_DH, TRAIN_T, TRAIN_T, True),
 )
 
 
@@ -719,8 +750,10 @@ def phase_bwd_checks() -> dict:
     the training shapes B=32, H=12, Dh=64 with T=160 and the trunk's
     all-zero bias, T=160 left-padded, and Tq=96 queries right-aligned over
     S=160 keys; a ragged T=100 and Tq=37 over S=100; Dh=128 at B=4, H=32,
-    T=160), bf16 through the backward's tensor-core variant and f32
-    through its CUDA-core variant; and K1 alone at the next-window
+    T=160; GPT-J's Dh=256 at B=4, H=16, T=160 left-padded), bf16 through
+    the backward's tensor-core variant (at Dh=256 its CUDA-core variant, on
+    the tensor-core forward's lse) and f32 through its CUDA-core variant;
+    and K1 alone at the next-window
     forward's T=16, with and without padding. K1 is checked on the inputs
     the backward kernels then take."""
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -743,7 +776,7 @@ def phase_bwd_checks() -> dict:
             dq = flash_bwd_dq(*args, True, scale)
             dk, dv = flash_bwd_dkv(*args, True, scale)
             n_tc = tuple(n - n0 for n, n0 in zip(_tc_counts(), tc0))
-            want_tc = (1, 1) if dtype == torch.bfloat16 else (0, 0)
+            want_tc = tuple(int(_variant(dtype, dh, name) == "tc") for name in ("flash_bwd_dq", "flash_bwd_dkv"))
             check(n_tc == want_tc, f"flash_bwd {shape} {dtype}: tensor-core launches {n_tc}, want {want_tc}")
             ref_dq = _plain_bwd_dq(*args, True, scale)
             ref_dk, ref_dv = _plain_bwd_dkv(*args, True, scale)
@@ -768,9 +801,12 @@ def phase_bwd_checks() -> dict:
             if dtype == torch.bfloat16:
                 t_lib = sdpa_bwd_ms(q, k, v, bias, dout, scale, causal_only=not padded and Tq == S, reps=BWD_REPS)
                 lib = f" library_bwd_ms={t_lib:.4f}"
+            bounds = [bound_ms(*bwd_work(b, h, dh, Tq, S, dtype, kind, bias is not None), dtype)[0]
+                      for kind in ("dq", "dkv")]
             log(f"check flash_bwd {shape} offset={S - Tq} padding={padded} {str(dtype)[6:]}: "
                 + " ".join(line) + f" (atol, rtol fwd {TOL[dtype]}, bwd {GRAD_TOL[dtype]}) dq_ms={t_dq:.4f} dkv_ms={t_dkv:.4f} "
-                f"plain_dq_ms={t_pdq:.4f} plain_dkv_ms={t_pdkv:.4f}{lib}")
+                f"plain_dq_ms={t_pdq:.4f} plain_dkv_ms={t_pdkv:.4f}{lib} bound_dq_ms={bounds[0]:.4f} "
+                f"bound_dkv_ms={bounds[1]:.4f}")
     _check_bwd_live_pad_rows(gen, errs)
     return errs
 
@@ -917,7 +953,7 @@ def phase_train_shapes() -> dict:
     out = {}
     for name, fn, plain, kind in (("flash_bwd_dq", flash_bwd_dq, _plain_bwd_dq, "dq"),
                                   ("flash_bwd_dkv", flash_bwd_dkv, _plain_bwd_dkv, "dkv")):
-        t_b, by = bound_ms(*bwd_work(TRAIN_B, TRAIN_T, TRAIN_T, dtype, kind, True), dtype)
+        t_b, by = bound_ms(*bwd_work(TRAIN_B, H, DH, TRAIN_T, TRAIN_T, dtype, kind, True), dtype)
         out[name] = dict(ms=cuda_ms(lambda: fn(*args, True, scale)), plain_ms=cuda_ms(lambda: plain(*args, True, scale)),
                          library_ms=lib, bound_ms=t_b, bound_by=by, delta_ms=t_delta)
     pair = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"] + t_delta
@@ -932,7 +968,7 @@ def phase_train_shapes() -> dict:
                    library_ms=device_ms(lambda: sdpa(fq, fk, fv, is_causal=True, scale=scale)))
         with forced_variant("simt"):
             row["simt_ms"] = cuda_ms(lambda: flash_fwd(fq, fk, fv, fbias, True, scale))
-        n_bytes, flops = (x * TRAIN_B / B for x in flash_work(T, T, dtype))
+        n_bytes, flops = flash_work(TRAIN_B, H, DH, T, T, dtype)
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, flops, dtype)
         log(f"train-step shapes flash_fwd B={TRAIN_B} T={T} (bf16, per launch): "
             + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
@@ -974,13 +1010,13 @@ def phase_main_path_shapes() -> dict:
         sums[0] += cuda_ms(lambda: flash_fwd(q, k, v, None, True, scale))
         sums[1] += cuda_ms(lambda: _plain_attention(q, k, v, None, True, scale))
         sums[2] += cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale))
-        sums[3] += bound_ms(*flash_work(Tq, S, dtype), dtype)[0]
+        sums[3] += bound_ms(*flash_work(B, H, DH, Tq, S, dtype), dtype)[0]
         with forced_variant("simt"):
             sums[4] += cuda_ms(lambda: flash_fwd(q, k, v, None, True, scale))
     n = len(flash_shapes)
     out["flash_fwd"] = dict(
         ms=sums[0] / n, plain_ms=sums[1] / n, library_ms=sums[2] / n, bound_ms=sums[3] / n,
-        bound_by=bound_ms(*flash_work(10, 128, dtype), dtype)[1], simt_ms=sums[4] / n,
+        bound_by=bound_ms(*flash_work(B, H, DH, 10, 128, dtype), dtype)[1], simt_ms=sums[4] / n,
     )
 
     sums = [0.0, 0.0, 0.0, 0.0]
@@ -990,11 +1026,11 @@ def phase_main_path_shapes() -> dict:
         sums[0] += cuda_ms(lambda: decode_attention(q, k_all, v_all, index, None, scale), reps=10)
         sums[1] += cuda_ms(lambda: _plain_decode_attention(q, k_all, v_all, index, None, scale), reps=10)
         sums[2] += cuda_ms(lambda: sdpa(q, kp, vp, scale=scale), reps=10)
-        sums[3] += bound_ms(*decode_work(index + 1, dtype), dtype)[0]
+        sums[3] += bound_ms(*decode_work(B, H, DH, index + 1, dtype), dtype)[0]
     n = len(decode_index)
     out["decode_attn"] = dict(
         ms=sums[0] / n, plain_ms=sums[1] / n, library_ms=sums[2] / n, bound_ms=sums[3] / n,
-        bound_by=bound_ms(*decode_work(68, dtype), dtype)[1],
+        bound_by=bound_ms(*decode_work(B, H, DH, 68, dtype), dtype)[1],
     )
     for name, row in out.items():
         log(f"main-path shapes {name} (bf16, mean per launch): " + " ".join(
@@ -1077,6 +1113,20 @@ def _kernel_category(name: str) -> str:
     return "other"
 
 
+def device_kernel_times(prof) -> dict:
+    """{kernel name: (device ms, launches)} of a finished torch.profiler
+    run, summed straight from its raw events: building the profiler's
+    own FunctionEvents (`key_averages`) took ~180 µs per kernel on the
+    H100's host, 21 s for one GPT-J rollout's 117,000 kernels, for the same
+    sums."""
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, n = out.get(e.name(), (0.0, 0))
+            out[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return out
+
+
 def profile_run(label: str, run, unprofiled_s: float) -> None:
     """One more run (a rollout, a train step) under torch.profiler: device
     busy time (one stream, so the sum of kernel times) against the wall
@@ -1093,24 +1143,25 @@ def profile_run(label: str, run, unprofiled_s: float) -> None:
             run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        kernels = device_kernel_times(prof)
+        busy_ms = sum(ms for ms, _ in kernels.values())
         if busy_ms > 0:
             break
     else:
         log(f"profile {label}: the profiler recorded no device time in {PROFILER_TRIES} tries; no breakdown")
         return
     log(f"profile {label}: wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} idle_share={1 - busy_ms / wall_ms:.3f} "
-        f"(against the unprofiled {label}: {1 - busy_ms / (unprofiled_s * 1e3):.3f})")
+        f"(against the unprofiled {label}: {1 - busy_ms / (unprofiled_s * 1e3):.3f}); "
+        f"{sum(n for _, n in kernels.values())} kernels, trace read in {time.perf_counter() - t0 - wall_ms / 1e3:.1f} s")
     by_cat: dict = {}
-    for e in kernels:
-        cat = _kernel_category(e.key)
-        ms, n = by_cat.get(cat, (0.0, 0))
-        by_cat[cat] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    for name, (ms, n) in kernels.items():
+        cat = _kernel_category(name)
+        cat_ms, cat_n = by_cat.get(cat, (0.0, 0))
+        by_cat[cat] = (cat_ms + ms, cat_n + n)
     for cat, (ms, n) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
         log(f"  device {cat}: {ms:.1f} ms ({ms / wall_ms:.3f} of wall) in {n} launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  kernel {e.self_device_time_total / 1e3:8.1f} ms x{e.count:5d}  {e.key[:110]}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  kernel {ms:8.1f} ms x{n:5d}  {name[:110]}")
 
 
 def phase_slice() -> dict:
@@ -1388,11 +1439,16 @@ def phase_text_env(serving: ValueRLParams, config) -> dict:
 
 
 def phase_card_vs_cpu(base, config) -> float:
-    """Header prefill + 3 decode steps, B=4: card (bf16, kernels) vs CPU (f32, plain)."""
+    """Header prefill + 3 decode steps, B=4: card (bf16, kernels) vs CPU (f32, plain).
+    The CPU model is a fresh f32 Transformer under the f32 config, built and
+    given the card model's weights on the card, then moved to the CPU (its
+    draw on the CPU took 15 s for GPT-J's embeddings and lm_head at 2
+    layers)."""
     b = 4
     cpu_cfg = config.replace(dtype="float32")
-    cpu_model = Transformer(cpu_cfg, device="cpu")
-    cpu_model.load_state_dict({k: v.float().cpu() for k, v in base.state_dict().items()})
+    cpu_model = Transformer(cpu_cfg, device="cuda")
+    cpu_model.load_state_dict({k: v.float() for k, v in base.state_dict().items()})
+    cpu_model = cpu_model.to("cpu")
     runs = []
     for model, cfg, device in ((base, config, "cuda"), (cpu_model, cpu_cfg, "cpu")):
         step_fn, cache = actor.make_lm_step_fn(LMCore(cfg, device=device), b)
@@ -1530,11 +1586,11 @@ def phase_train_card_vs_cpu(config) -> None:
     card (kernels) against the CPU (plain versions). Heads with a nonzero
     second layer, so every group's gradient is nonzero."""
     cfg = config.replace(dtype="float32")
-    cpu_modules = _train_modules(cfg, "cpu", seed=5, layer2_initializer_range=None)
+    modules = _train_modules(cfg, "cuda", seed=5, layer2_initializer_range=None)  # drawn on the card: seconds faster
     batch = _train_batch("cpu", b=2, t=32, nt=8, seed=1)
     runs = []
     for d in ("cuda", "cpu"):
-        mods = [copy.deepcopy(m).to(d) for m in cpu_modules]
+        mods = [copy.deepcopy(m).to(d) for m in modules]
         state = init_ilql_state(*mods, adamw(1e-4), adamw(1e-3), ILQLConfig())
         _reset_counts()
         loss, _, grads = ilql_loss_and_grads(LMCore(cfg, device=d), state, ILQLBatch(*(x.to(d) for x in batch)),
@@ -1586,7 +1642,8 @@ def _counted(fn, *args, device="cuda", **kwargs):
 def _want(L: int, fwd: int = 0, dec: int = 0, bwd: int = 0) -> tuple:
     """Expected counts in COUNT_NAMES' order for `fwd` trunk forwards,
     `dec` single-token decode steps and `bwd` trunk backwards of L layers,
-    every K1-K3 launch on the tensor-core variant (bf16, Dh=64)."""
+    every K1-K3 launch on the tensor-core variant (bf16: Dh up to 128, and
+    K1 at GPT-J's 256)."""
     return (fwd * L, fwd * L, dec * L, bwd * L, bwd * L, bwd * L, bwd * L)
 
 
@@ -1664,11 +1721,11 @@ def phase_mc(config, device="cuda") -> dict:
     del state, base, q
 
     cfg = config.replace(dtype="float32")
-    cpu_modules = _train_modules(cfg, "cpu", seed=5, layer2_initializer_range=None)[:2]
+    modules = _train_modules(cfg, device, seed=5, layer2_initializer_range=None)[:2]
     batch = _mc_batch("cpu", b=2, t=32, seed=1)
     runs = []
     for d in (device, "cpu"):
-        base, q = (copy.deepcopy(m).to(d) for m in cpu_modules)
+        base, q = (copy.deepcopy(m).to(d) for m in modules)
         _reset_counts()
         loss, _ = mc_loss_from_params(LMCore(cfg, device=d), base, q, MCBatch(*(x.to(d) for x in batch)), MCConfig(),
                                       PAD_ID, train=True)
@@ -1693,11 +1750,11 @@ def phase_cql(config, device="cuda") -> dict:
     del state, base, q1, q2
 
     cfg = config.replace(dtype="float32")
-    cpu_modules = _train_modules(cfg, "cpu", seed=5, layer2_initializer_range=None)[:3]
+    modules = _train_modules(cfg, device, seed=5, layer2_initializer_range=None)[:3]
     batch = _train_batch("cpu", b=2, t=32, nt=8, seed=1)
     runs = []
     for d in (device, "cpu"):
-        state = init_cql_state(*(copy.deepcopy(m).to(d) for m in cpu_modules), adamw(1e-4), adamw(1e-3), CQLConfig())
+        state = init_cql_state(*(copy.deepcopy(m).to(d) for m in modules), adamw(1e-4), adamw(1e-3), CQLConfig())
         _reset_counts()
         loss, _ = cql_forward(LMCore(cfg, device=d), state.base.params, state.target_base_params, state.q1_head.params,
                               state.q2_head.params, state.q1_target_params, state.q2_target_params,
@@ -2559,7 +2616,7 @@ def _check_dialog_shapes(gen, errs: dict) -> None:
             tc0 = (flash_bwd_dq.tc_launches, flash_bwd_dkv.tc_launches)
             got = (flash_bwd_dq(*args, True, scale), *flash_bwd_dkv(*args, True, scale))
             n_tc = (flash_bwd_dq.tc_launches - tc0[0], flash_bwd_dkv.tc_launches - tc0[1])
-            want_tc = int(_variant(dtype, dh) == "tc")
+            want_tc = int(_variant(dtype, dh, "flash_bwd_dq") == "tc")
             check(n_tc == (want_tc, want_tc), f"flash_bwd dialog {name}: tensor-core launches {n_tc}, want {want_tc}")
             ref = (_plain_bwd_dq(*args, True, scale), *_plain_bwd_dkv(*args, True, scale))
             torch.cuda.synchronize()
@@ -2621,7 +2678,7 @@ def _t5_card_vs_cpu(config, device) -> dict:
     T5_RMS_FACTOR times the CPU's bf16 error."""
     cfg = config.replace(num_layers=T5_CHECK_LAYERS, num_decoder_layers=T5_CHECK_LAYERS, dtype="float32")
     bf16_cfg = cfg.replace(dtype="bfloat16")
-    ref = EncoderDecoder(cfg, device="cpu", seed=3)
+    ref = EncoderDecoder(cfg, device=device, seed=3).to("cpu")  # every draw on `device`: seconds faster
     gen = torch.Generator().manual_seed(4)
     ids = torch.randint(1, cfg.vocab_size, (2, 32), generator=gen)
     mask = (torch.arange(32)[None, :] < torch.tensor([32, 9])[:, None]).to(torch.int32)
@@ -2629,7 +2686,7 @@ def _t5_card_vs_cpu(config, device) -> dict:
     B = ids.shape[0]
 
     def run(dev, c, dtype):
-        model = ref if c is cfg else EncoderDecoder(c, device=dev, dtype=dtype, seed=3)
+        model = ref if c is cfg else EncoderDecoder(c, device=device, dtype=dtype, seed=3).to(dev)
         if model is not ref:
             model.load_state_dict(ref.state_dict())
         fn, cache = EncDecCore(c, device=dev).make_seq2seq_logits_fn(model, ids.to(dev), mask.to(dev), 2)
@@ -3097,8 +3154,8 @@ def _dropout_card_vs_cpu(device, config=None) -> dict:
     keeps = [torch.rand(b, cfg.num_heads, t, t, generator=g) < 1.0 - cfg.attn_pdrop for _ in range(cfg.num_layers)]
     causal = torch.ones(t, t, dtype=torch.bool).tril()
     share = torch.stack([k[:, :, causal] for k in keeps]).float().mean().item()
-    cpu_model = Transformer(cfg, device="cpu", seed=5)
-    model = copy.deepcopy(cpu_model).to(device)
+    model = Transformer(cfg, device=device, seed=5)  # drawn on `device`: seconds faster than on the CPU
+    cpu_model = copy.deepcopy(model).to("cpu")
     t0 = time.perf_counter()
     with torch.no_grad():
         (logits, _, _), counts, s_card = _counted(model, ids.to(device), deterministic=False,
@@ -3271,6 +3328,234 @@ def phase_sharded(config, device="cuda") -> dict:
     return dict(zip(names, want + (3 * L, L, L)))
 
 
+# GPT-J-6B (slice 12): value-guided serving at full width and depth
+GPTJ_B = 256  # the rollout's games (B = 512 would need ~88 GB)
+GPTJ_TURN_B = 16  # a served Text-Nav turn's prompts (TN_LEN tokens, TN_NEW new)
+GPTJ_REPS = 2  # timed rollouts and turns, each after one warm-up
+GPTJ_CPU_LAYERS = 2  # the card-vs-CPU logits check's depth: the CPU holds 2 layers at d4096 in f32
+GPTJ_ROLLOUT_FLASH = [(8, 8)] + [(10, 28 + 20 * t) for t in range(N_TRIES)]  # K1 (Tq, S) per trunk and layer
+GPTJ_ROLLOUT_FILLS = [8 + 20 * t + s for t in range(N_TRIES) for s in range(10)]  # K4 cache index per step
+GPTJ_TURN_FILLS = list(range(TN_LEN, TN_LEN + TN_NEW))
+GPTJ_FILL_STRIDE = 3  # 2j times K4 at every third fill of a path: its time is linear in the fill
+
+
+def gptj_config():
+    """`models/config.py::gptj_6b` as published: vocab 50,400 padded to
+    50,432, 28 layers, d 4096, 16 heads (Dh 256), rotary_dim 64
+    interleaved, parallel FFN, untied lm_head."""
+    config = gptj_6b()
+    check((config.padded_vocab_size, config.num_layers, config.hidden_size, config.head_dim) == (50432, 28, 4096, 256),
+          f"gptj_6b: {config}")
+    return config
+
+
+def _gptj_flash_row(b, h, dh, Tq, S, t_max, padded, gen, sdpa_fn) -> dict:
+    """K1 at one GPT-J shape, bf16 on a cache view: checked against the
+    plain version (on the tensor-core route), then the kernel's, plain
+    version's, SDPA's and the CUDA-core variant's ms and the bound."""
+    dtype = torch.bfloat16
+    q, k, v, bias = _flash_inputs(Tq, S, dtype, padded, gen, b, h, t_max=t_max, dh=dh)
+    rows = torch.ones(b, Tq, dtype=torch.bool, device="cuda") if bias is None else bias[:, S - Tq:] == 0
+    tc0 = flash_fwd.tc_launches
+    err, lse_err = _check_fwd(q, k, v, bias, rows, dtype, f"GPT-J B={b} Tq={Tq} S={S} padded={padded}")
+    n_tc = flash_fwd.tc_launches - tc0
+    check(n_tc == 1, f"flash_fwd GPT-J B={b} Tq={Tq} S={S}: tensor-core launches {n_tc}, want 1")
+    scale = 1.0 / dh**0.5
+    mask = sdpa_mask(bias, Tq, S, b)
+    row = dict(ms=cuda_ms(lambda: flash_fwd(q, k, v, bias, True, scale)),
+               plain_ms=cuda_ms(lambda: _plain_attention(q, k, v, bias, True, scale), 5, 1),
+               library_ms=cuda_ms(lambda: sdpa_fn(q, k, v, attn_mask=mask, scale=scale)))
+    with forced_variant("simt"):
+        row["simt_ms"] = cuda_ms(lambda: flash_fwd(q, k, v, bias, True, scale), 5, 1)
+    row["bound_ms"], row["bound_by"] = bound_ms(*flash_work(b, h, dh, Tq, S, dtype), dtype)
+    log(f"check flash_fwd GPT-J B={b} H={h} Dh={dh} Tq={Tq} S={S} (view of {t_max}) left_pad={padded} bf16: "
+        f"max_abs_err={err:.3e} (atol, rtol {TOL[dtype]}) lse_err={lse_err:.3e} tc_launches={n_tc} "
+        + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items())
+        + f" bound_share={row['bound_ms'] / row['ms']:.3f}")
+    return dict(row, err=err)
+
+
+def _gptj_decode_row(b, h, dh, index, t_max, padded, gen, sdpa_fn, reps=20) -> dict:
+    """K4 at one GPT-J fill, bf16: checked, then kernel, plain, SDPA ms and the bound."""
+    dtype = torch.bfloat16
+    q, k, v, bias = _decode_inputs(index, dtype, padded, gen, b, h, t_max=t_max, max_pad=TN_LEN - 1, dh=dh)
+    err = _check_decode(q, k, v, index, bias, dtype, f"GPT-J B={b} index={index}")
+    scale = 1.0 / dh**0.5
+    n = index + 1
+    kp, vp = k[:, :, :n], v[:, :, :n]
+    mask = None if bias is None else (bias[:, :n] == 0)[:, None, None, :]
+    row = dict(ms=cuda_ms(lambda: decode_attention(q, k, v, index, bias, scale), reps),
+               plain_ms=cuda_ms(lambda: _plain_decode_attention(q, k, v, index, bias, scale), max(2, reps // 4), 1),
+               library_ms=cuda_ms(lambda: sdpa_fn(q, kp, vp, attn_mask=mask, scale=scale), reps))
+    row["bound_ms"], row["bound_by"] = bound_ms(*decode_work(b, h, dh, n, dtype), dtype)
+    return dict(row, err=err)
+
+
+def _mean_rows(rows: list) -> dict:
+    """Per-launch means over a path's launches; bound_by of the heaviest."""
+    out = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0] if k not in ("bound_by", "err")}
+    out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    out["err"] = max(r["err"] for r in rows)
+    return out
+
+
+def phase_gptj_kernel_checks() -> dict:
+    """Phase 2j: K1 and K4 at GPT-J-6B's Dh = 256, bf16, against their
+    plain versions, with kernel, plain, SDPA (and for K1 the CUDA-core
+    variant's) ms and the bound at each shape: K1 at the rollout's shapes
+    (B=256, H=16; the header prefill Tq=S=8 and the appends Tq=10 over
+    S = 28..128, views of a 128-slot cache) and the served Text-Nav turn's
+    prefill (B=16, Tq=S=640 of a 676-slot cache, with and without left
+    padding); K4 at the rollout's 60 fills (B=256) and the turn's 36
+    (B=16, left-padded). Returns per kernel the per-launch means over each
+    path's launches ("gptj_rollout", "gptj_turn") and the max errors."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, dh = GPTJ_H, GPTJ_DH
+    roll = [_gptj_flash_row(GPTJ_B, h, dh, Tq, S, T_MAX, False, gen, sdpa) for Tq, S in GPTJ_ROLLOUT_FLASH]
+    turn = [_gptj_flash_row(GPTJ_TURN_B, h, dh, TN_LEN, TN_LEN, TN_LEN + TN_NEW, padded, gen, sdpa)
+            for padded in (False, True)]
+    out = {"flash_fwd_gptj_rollout": _mean_rows(roll), "flash_fwd_gptj_turn": _mean_rows(turn[1:])}
+    out["flash_fwd_gptj_turn"]["err"] = max(r["err"] for r in turn)
+    dec_roll = [_gptj_decode_row(GPTJ_B, h, dh, index, T_MAX, False, gen, sdpa, reps=5)
+                for index in GPTJ_ROLLOUT_FILLS[1::GPTJ_FILL_STRIDE]]
+    dec_turn = [_gptj_decode_row(GPTJ_TURN_B, h, dh, index, TN_LEN + TN_NEW, True, gen, sdpa, reps=5)
+                for index in GPTJ_TURN_FILLS[GPTJ_FILL_STRIDE - 1::GPTJ_FILL_STRIDE]]
+    for index in (8, 67, 127):  # phase 2's decode checks, at B=256 and Dh=256
+        r = _gptj_decode_row(GPTJ_B, h, dh, index, T_MAX, False, gen, sdpa)
+        log(f"check decode_attn GPT-J B={GPTJ_B} H={h} Dh={dh} T_max={T_MAX} index={index} bf16: "
+            f"max_abs_err={r['err']:.3e} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} bound_share={r['bound_ms'] / r['ms']:.3f}")
+    r = dec_turn[-1]  # the turn's last step
+    log(f"check decode_attn GPT-J B={GPTJ_TURN_B} H={h} Dh={dh} T_max={TN_LEN + TN_NEW} index={GPTJ_TURN_FILLS[-1]} "
+        f"left-padded bf16: max_abs_err={r['err']:.3e} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} bound_share={r['bound_ms'] / r['ms']:.3f}")
+    out["decode_attn_gptj_rollout"] = _mean_rows(dec_roll)
+    out["decode_attn_gptj_turn"] = _mean_rows(dec_turn)
+    for name, row in out.items():
+        log(f"GPT-J path shapes {name} (bf16, Dh=256, mean per launch): " + " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items())
+            + f" bound_share={row['bound_ms'] / row['ms']:.3f}")
+    return out
+
+
+def gptj_text_nav_prompts(n: int) -> list:
+    """n Text-Nav histories as served prompts: `TextNavEnv` games from
+    seeds 0..n−1, each 0 to 5 moves in under its walkthrough agent, as
+    strings (the server cuts and left-pads them to TN_LEN byte tokens)."""
+    prompts = []
+    for i in range(n):
+        env = TextNavEnv()
+        hist = env.reset(seed=i)
+        agent = WalkthroughAgent(env)
+        for _ in range(i % 6):
+            hist, _, done = env.step(agent.act(hist))
+            if done:
+                break
+        prompts.append(text_history_to_str(hist))
+    return prompts
+
+
+def phase_gptj() -> dict:
+    """Phase 3j: value-guided serving at GPT-J-6B's full width and depth
+    (bf16 weights from a seed): two trunks, twin MLP Q heads (f32, hidden
+    8,192, out 50,432), beta=32. The fused Wordle rollout at B=256 on the
+    constrained vocab — one warm-up, GPTJ_REPS timed with exact launches
+    worked out from the code before the run (per trunk and layer 7 K1: the
+    header prefill and six observation appends; 60 K4: the decode steps;
+    392 and 3,360 in all, every K1 on the tensor cores), the rollout's
+    invariants, env-steps/s, tokens/s and peak memory, then one rollout
+    profiled; then, its caches freed, a served Text-Nav turn:
+    `ValueGuidedServer.generate_from_strs` on B=16 Text-Nav histories
+    left-padded to 640 byte tokens, 36 sampled new tokens (per trunk and
+    layer one K1 prefill and 36 K4: 56 and 2,016), one warm-up and
+    GPTJ_REPS timed; and the trunk cut to GPTJ_CPU_LAYERS layers at full
+    width, bf16 on the card against f32 on the CPU (phase 4's check)."""
+    config = gptj_config()
+    L = config.num_layers
+    core = LMCore(config, device="cuda")
+    t0 = time.perf_counter()
+    pi_beta = init_params(config, seed=60, device="cuda", dtype=torch.bfloat16)
+    base = init_params(config, seed=61, device="cuda", dtype=torch.bfloat16)
+    head_cfg = MLPHeadConfig(input_dim=config.hidden_size, hidden_dim=2 * config.hidden_size,
+                             output_dim=config.padded_vocab_size)
+    q1, q2 = MLPHead(head_cfg, device="cuda", seed=62), MLPHead(head_cfg, device="cuda", seed=63)
+    env = WordleVectorEnv(WordleVocab.from_file(), device="cuda")
+    params = {"pi_beta": pi_beta, "base": base, "q1": q1, "q2": q2}
+    step_fn, carry0 = actor.make_value_guided_step_fn(core, GPTJ_B, two_trunks=True, twin_q=True, beta=32.0)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    torch.cuda.synchronize()
+    n_params = _n_params(base)
+    log(f"GPT-J setup (3j): two {n_params / 1e9:.3f}B-parameter trunks bf16 ({config.num_layers} layers, d"
+        f"{config.hidden_size}, {config.num_heads} heads of {config.head_dim}), twin MLP Q heads f32 "
+        f"({2 * _n_params(q1) / 1e9:.3f}B), B={GPTJ_B}: {time.perf_counter() - t0:.2f} s")
+
+    def rollout():
+        return actor.rollout_wordle(env, step_fn, params, carry0, GPTJ_B, constrain_vocab=True, generator=gen)
+
+    t0 = time.perf_counter()
+    rollout()
+    torch.cuda.synchronize()
+    log(f"GPT-J warm-up rollout: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    want_roll = _want(L, fwd=2 * 7, dec=2 * 60)
+    times = []
+    for rep in range(GPTJ_REPS):
+        out, counts, s = _counted(rollout)
+        check(counts == want_roll, f"GPT-J rollout {rep}: {_fmt_counts(counts)}, want {want_roll}")
+        _check_rollout(out, env, GPTJ_B)
+        times.append(s)
+        log(f"GPT-J rollout {rep} B={GPTJ_B}: {s:.4f} s, {_fmt_counts(counts)}, return "
+            f"{(out.turn_reward * out.turn_live).sum(1).mean().item():.3f} turns {out.n_turns.float().mean().item():.2f}")
+    dt = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"GPT-J rollout median of {GPTJ_REPS}: {dt:.4f} s (min {min(times):.4f}, max {max(times):.4f}), "
+        f"env_steps_per_s={GPTJ_B * N_TRIES / dt:.1f} tokens_per_s={GPTJ_B * actor.EPISODE_LEN / dt:.1f} "
+        f"peak_mem_gb={peak:.2f}")
+    profile_run("GPT-J rollout", rollout, dt)
+    out = _path_counts("gptj_rollout", counts)
+    del rollout, step_fn, carry0
+    torch.cuda.empty_cache()
+
+    server = ValueGuidedServer(core, ByteTokenizer(), beta=32.0)
+    serving = ValueRLParams(pi_beta, base, q1, q2, None)
+    prompts = gptj_text_nav_prompts(GPTJ_TURN_B)
+    sampling = SamplingConfig(max_new_tokens=TN_NEW, pad_token_id=256)
+    turn_gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def turn():
+        return server.generate_from_strs(serving, prompts, TN_LEN, sampling, turn_gen)
+
+    t0 = time.perf_counter()
+    turn()
+    torch.cuda.synchronize()
+    log(f"GPT-J warm-up Text-Nav turn: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    want_turn = _want(L, fwd=2, dec=2 * TN_NEW)
+    times = []
+    for rep in range(GPTJ_REPS):
+        answers, counts, s = _counted(turn)
+        check(counts == want_turn, f"GPT-J Text-Nav turn {rep}: {_fmt_counts(counts)}, want {want_turn}")
+        check(len(answers) == GPTJ_TURN_B and all(isinstance(a, str) for a in answers), "GPT-J Text-Nav turn answers")
+        times.append(s)
+    dt = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_tok = [len(ByteTokenizer().encode(p)) for p in prompts]
+    log(f"GPT-J Text-Nav turn (ValueGuidedServer, B={GPTJ_TURN_B}, prompts of {min(n_tok)}-{max(n_tok)} bytes "
+        f"left-padded or cut to {TN_LEN}, {TN_NEW} new): median of {GPTJ_REPS} {dt:.4f} s (min {min(times):.4f}, "
+        f"max {max(times):.4f}), new_tokens_per_s={GPTJ_TURN_B * TN_NEW / dt:.1f}, {_fmt_counts(counts)}, "
+        f"peak_mem_gb={peak:.2f}; answer 0 {answers[0][:40]!r}")
+    out.update(_path_counts("gptj_turn", counts))
+    del server, serving, params, pi_beta, base, q1, q2
+    torch.cuda.empty_cache()
+
+    cut = config.replace(num_layers=GPTJ_CPU_LAYERS)
+    cut_base = init_params(cut, seed=61, device="cuda", dtype=torch.bfloat16)
+    log(f"GPT-J cut to {GPTJ_CPU_LAYERS} layers at full width for the card-vs-CPU check:")
+    phase_card_vs_cpu(cut_base, cut)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
@@ -3287,6 +3572,11 @@ def main() -> int:
             for name, err in phase().items():
                 errs[name] = max(errs.get(name, 0.0), err)
             log(f"{phase.__name__}: {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        gptj_shapes = phase_gptj_kernel_checks()
+        for name in ("flash_fwd", "decode_attn"):
+            errs[name] = max(errs[name], *(gptj_shapes[f"{name}_{path}"]["err"] for path in ("gptj_rollout", "gptj_turn")))
+        log(f"phase 2j (GPT-J, Dh=256): {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
         shapes = phase_main_path_shapes()
         shapes.update(phase_train_shapes())
@@ -3330,6 +3620,10 @@ def main() -> int:
         launches.update(phase_cli())
         log(f"phase 3i: {time.perf_counter() - t0:.1f} s")
         launches.update(phase_sharded(launches["config"]))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches.update(phase_gptj())
+        log(f"phase 3j: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         phase_card_vs_cpu(launches["base"], launches["config"])
         log(f"phase 4 serving: {time.perf_counter() - t0:.1f} s")
@@ -3345,7 +3639,8 @@ def main() -> int:
         "decode_attn": "lmrl_gym_tpu/ops/decode_attention.py:83",
     }
     # both main paths run K1, K2 and K3 on the tensor-core variant (bf16,
-    # Dh=64); csrc/flash_fwd.cu and csrc/flash_bwd.cu keep f32 and Dh=256
+    # Dh=64), and so does K1 at GPT-J's Dh=256 (3j); csrc/flash_fwd.cu and
+    # csrc/flash_bwd.cu keep f32, and csrc/flash_bwd.cu the backward at Dh=256
     source = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dq": "flash_bwd_tc", "flash_bwd_dkv": "flash_bwd_tc",
               "decode_attn": "decode_attn"}
     kernels = [
@@ -3385,11 +3680,17 @@ def main() -> int:
                      "ppo_gate_text_nav", "ppo_gate_maze", "markov_maze", "markov_chess", "markov_guided",
                      "online_markov_round", "online_markov_step", "chess_gate", "dialog_asker_turn",
                      "dialog_oracle_turn", "dialog_gate_car_dealer", "dialog_gate_dialog_ilql",
-                     "dialog_gate_twenty_questions", "cli_train", "cli_evaluate", "sharded_step"):
+                     "dialog_gate_twenty_questions", "cli_train", "cli_evaluate", "sharded_step", "gptj_rollout",
+                     "gptj_turn"):
             if f"{entry['name']}_{path}" in launches:
                 entry[f"launches_{path}"] = launches[f"{entry['name']}_{path}"]
             if f"{entry['name']}_tc_{path}" in launches:
                 entry[f"tc_launches_{path}"] = launches[f"{entry['name']}_tc_{path}"]
+    # K1 and K4 at GPT-J's Dh=256 (2j's per-launch means over 3j's launches)
+    for entry in (kernels[0], kernels[3]):
+        for path in ("gptj_rollout", "gptj_turn"):
+            row = gptj_shapes[f"{entry['name']}_{path}"]
+            entry.update({f"{k}_{path}": v for k, v in row.items() if k != "err"})
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -7,20 +7,22 @@
 // allows it; fp32 online softmax; slots past `index` are never read, so
 // cache traffic scales with the fill, not with T_max.
 //
-// Design: one thread block (4 warps) per (batch row, head). Lanes form
-// groups of Dh/8 (8 for Dh = 64): each lane of a group holds 8 consecutive
-// dims of q and of its output accumulator, and a group reads one key row per
-// step with one 16-byte load per lane (two for fp32), so a warp streams
-// 32/G key rows of K and V per load instruction, coalesced. Each group runs
-// its own online softmax over keys g, g + NG, ...; the NG partial
-// (max, sum, acc) triples are merged in shared memory at the end.
+// Design up to Dh = 128: one thread block (4 warps) per (batch row, head).
+// Lanes form groups of Dh/8 (8 for Dh = 64): each lane of a group holds 8
+// consecutive dims of q and of its output accumulator, and a group reads
+// one key row per step with one 16-byte load per lane (two for fp32), so a
+// warp streams 32/G key rows of K and V per load instruction, coalesced.
+// Each group runs its own online softmax over keys g, g + NG, ...; the NG
+// partial (max, sum, acc) triples are merged in shared memory at the end.
+// Dh in (128, 256] (GPT-J) at small B x H takes a route of its own, below:
+// 8 lanes per key row, each holding 32 dims.
 //
 // What bounds it on an H100: reading K and V of the filled prefix, about
 // 2 FLOP per byte — device-memory bandwidth. What this simple design leaves
-// on the table: no split of long caches over several blocks (one block per
-// (b, h) is enough parallelism at B*H = 6144 but not at small batch), no
-// cp.async/TMA prefetch of the next key rows, and G-fold redundant exp()
-// per key across a group's lanes.
+// on the table: no split of long caches over several blocks up to Dh = 128
+// (one block per (b, h) is enough parallelism at B*H = 6144 but not at
+// small batch), no cp.async/TMA prefetch of the next key rows, and G-fold
+// redundant exp() per key across a group's lanes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,6 +165,175 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
   return (int)cudaGetLastError();
 }
 
+// ---- Dh in (128, 256] at small B x H: a route of its own --------------------
+//
+// Above, a key row of 256 dims takes the whole warp (G = 32): a five-step
+// shuffle reduction, 32 lanes taking the same exp() per key, and four keys in
+// flight per block. With one block per (b, h) that is enough where B x H
+// fills the card (the GPT-J rollout's B = 256 x 16 heads: 0.70-0.86 of the
+// bytes bound on an H100), but a served batch of 16 gives 256 blocks, two
+// per SM, and there it reached 0.41. Here 8 lanes share a key row, each
+// holding 32 consecutive dims (four 16-byte loads of K and four of V in
+// bf16), so a warp streams 4 keys per step and a block of 8 warps 32, with
+// a three-step reduction and a quarter of the redundant exp(). q comes in
+// by the same 16-byte loads (the wrapper checks its alignment at Dh > 128),
+// and the groups' partial softmaxes are merged with each group's weight
+// computed once. K and V stay raw (16-byte words) until used, so a lane's
+// eight loads in flight cost 32 registers. Below kWideBelowBlocks blocks the
+// dispatch takes this route; at and above it, the G = 32 kernel, whose
+// small register and shared-memory footprint keeps more blocks resident
+// (at the rollout's short fills this route's per-block merge made it 2.5x
+// slower there). Splitting a (b, h)'s keys over several blocks was no
+// faster at B = 16 on an H100 (an earlier split-and-merge version of this
+// route: 0.069-0.084 ms with 3-5 splits of 676 keys, 0.066-0.070 unsplit).
+constexpr int kWideG = 8;                      // lanes per key row
+constexpr int kWideLoads = 4;                  // 8-element loads per lane and row
+constexpr int kWideDims = 8 * kWideLoads;      // dims per lane
+constexpr int kWideRows = 32 / kWideG;         // key rows per warp and step
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * 32;
+constexpr int kWideGroups = kWideWarps * kWideRows;
+constexpr int64_t kWideBelowBlocks = 1024;  // ~8 blocks per SM of an H100 (132 SMs)
+constexpr int kWideDmax = kWideG * kWideDims;  // 256
+
+// 8 elements as raw 16-byte words (two for fp32), unpacked to fp32 on use
+template <typename T> struct Raw8;
+template <> struct Raw8<__nv_bfloat16> { uint4 w; };
+template <> struct Raw8<float> { float4 a, b; };
+
+__device__ __forceinline__ Raw8<__nv_bfloat16> load_raw(const __nv_bfloat16* p) {
+  return {*reinterpret_cast<const uint4*>(p)};
+}
+__device__ __forceinline__ Raw8<float> load_raw(const float* p) {
+  return {*reinterpret_cast<const float4*>(p), *reinterpret_cast<const float4*>(p + 4)};
+}
+__device__ __forceinline__ void unpack(const Raw8<__nv_bfloat16>& r, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void unpack(const Raw8<float>& r, float* f) {
+  f[0] = r.a.x; f[1] = r.a.y; f[2] = r.a.z; f[3] = r.a.w;
+  f[4] = r.b.x; f[5] = r.b.y; f[6] = r.b.z; f[7] = r.b.w;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 2) decode_attn_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, T* __restrict__ out,
+    int H, int Dh, int n_keys,
+    int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_st,
+    int64_t v_sb, int64_t v_sh, int64_t v_st, int64_t bias_sb, float scale) {
+  __shared__ float sM[kWideGroups], sL[kWideGroups], sW[kWideGroups], sLsum;
+  __shared__ float sAcc[kWideGroups][kWideDmax];
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int li = lane % kWideG;
+  const int g = warp * kWideRows + lane / kWideG;  // group id
+  const int d0 = kWideDims * li;
+
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + h * k_sh;
+  const T* vb = v + b * v_sb + h * v_sh;
+  const float* biasb = bias ? bias + b * bias_sb : nullptr;
+
+  float qf[kWideDims], acc[kWideDims];
+#pragma unroll
+  for (int u = 0; u < kWideLoads; ++u) {
+    if (d0 + 8 * u < Dh) {  // Dh % 8 == 0: all 8 or none
+      unpack(load_raw(qb + d0 + 8 * u), qf + 8 * u);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qf[8 * u + e] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kWideDims; ++e) {
+    qf[e] *= scale;
+    acc[e] = 0.f;
+  }
+
+  float m = -INFINITY, l = 0.f;
+  // the trip count is uniform across the warp (the shuffles need every lane)
+  for (int jw = warp * kWideRows; jw < n_keys; jw += kWideGroups) {
+    const int j = jw + lane / kWideG;
+    const bool live = j < n_keys;
+    Raw8<T> kr[kWideLoads], vr[kWideLoads];
+#pragma unroll
+    for (int u = 0; u < kWideLoads; ++u) {
+      if (live && d0 + 8 * u < Dh) {
+        kr[u] = load_raw(kb + j * k_st + d0 + 8 * u);
+        vr[u] = load_raw(vb + j * v_st + d0 + 8 * u);
+      }
+    }
+    float dot = 0.f;
+#pragma unroll
+    for (int u = 0; u < kWideLoads; ++u) {
+      if (live && d0 + 8 * u < Dh) {
+        float kf[8];
+        unpack(kr[u], kf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dot = fmaf(qf[8 * u + e], kf[e], dot);
+      }
+    }
+#pragma unroll
+    for (int off = kWideG / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (live) {
+      const float s = biasb ? dot + biasb[j] : dot;
+      const float m_new = fmaxf(m, s);
+      const float alpha = expf(m - m_new);
+      const float p = expf(s - m_new);
+      l = l * alpha + p;
+      m = m_new;
+#pragma unroll
+      for (int u = 0; u < kWideLoads; ++u) {
+        if (d0 + 8 * u < Dh) {
+          float vf[8];
+          unpack(vr[u], vf);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[8 * u + e] = fmaf(p, vf[e], acc[8 * u + e] * alpha);
+        }
+      }
+    }
+  }
+
+  if (li == 0) {
+    sM[g] = m;
+    sL[g] = l;
+  }
+#pragma unroll
+  for (int e = 0; e < kWideDims; ++e) sAcc[g][d0 + e] = acc[e];
+  __syncthreads();
+
+  // the groups' weights e^(m_g - M) and the total sum, once, by warp 0 (one
+  // group per lane); key 0 is always read, so M is finite
+  static_assert(kWideGroups <= 32, "one group per lane of warp 0");
+  if (warp == 0) {
+    const float mg = lane < kWideGroups ? sM[lane] : -INFINITY;
+    float M = mg;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    const float w = expf(mg - M);  // 0 for the lanes past the groups
+    float lw = lane < kWideGroups ? sL[lane] * w : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lw += __shfl_xor_sync(0xffffffffu, lw, off);
+    if (lane < kWideGroups) sW[lane] = w;
+    if (lane == 0) sLsum = fmaxf(lw, 1e-30f);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < Dh; d += kWideThreads) {
+    float o = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWideGroups; ++i) o = fmaf(sAcc[i][d], sW[i], o);
+    out[((int64_t)b * H + h) * Dh + d] = from_f<T>(o / sLsum);
+  }
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* bias, void* out,
              int B, int H, int Dh, int n_keys, int64_t q_sb, int64_t q_sh,
@@ -174,17 +345,23 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias, void
   if (Dh <= 32) return launch<T, 4>(DECODE_ARGS);
   if (Dh <= 64) return launch<T, 8>(DECODE_ARGS);
   if (Dh <= 128) return launch<T, 16>(DECODE_ARGS);
-  return launch<T, 32>(DECODE_ARGS);
+  if ((int64_t)B * H >= kWideBelowBlocks) return launch<T, 32>(DECODE_ARGS);
 #undef DECODE_ARGS
+  decode_attn_wide_kernel<T><<<dim3(H, B), kWideThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<T*>(out), H, Dh, n_keys,
+      q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, bias_sb, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q is [B, H, Dh] by (b, h) strides; k/v
 // rows are addressed by (b, h, slot) strides with a contiguous last dim and
-// must be 16-byte aligned (the wrapper checks); keys 0 .. n_keys - 1
-// (= index) are read. out is contiguous [B, H, Dh]. bias is [B, >= n_keys]
-// float32 with row stride bias_sb, or null. Returns cudaGetLastError().
+// must be 16-byte aligned (the wrapper checks; for Dh > 128 q's rows too);
+// keys 0 .. n_keys - 1 (= index) are read. out is contiguous [B, H, Dh].
+// bias is [B, >= n_keys] float32 with row stride bias_sb, or null. Returns
+// cudaGetLastError().
 extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* v,
                            const void* bias, void* out, int B, int H, int Dh, int n_keys,
                            long long q_sb, long long q_sh,
@@ -196,13 +373,10 @@ extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return dispatch<float>(q, k, v, bias, out, B, H, Dh, n_keys, q_sb, q_sh, k_sb, k_sh,
-                           k_st, v_sb, v_sh, v_st, bias_sb, scale, st);
-  }
-  if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(q, k, v, bias, out, B, H, Dh, n_keys, q_sb, q_sh, k_sb,
-                                   k_sh, k_st, v_sb, v_sh, v_st, bias_sb, scale, st);
-  }
+#define ENTRY_ARGS q, k, v, bias, out, B, H, Dh, n_keys, q_sb, q_sh, k_sb, k_sh, k_st, \
+    v_sb, v_sh, v_st, bias_sb, scale, st
+  if (dtype == 0) return dispatch<float>(ENTRY_ARGS);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(ENTRY_ARGS);
   return (int)cudaErrorInvalidValue;
+#undef ENTRY_ARGS
 }

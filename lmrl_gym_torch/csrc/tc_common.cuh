@@ -122,11 +122,11 @@ __device__ __forceinline__ int b_row(int lane) { return (lane & 7) + ((lane >> 4
 __device__ __forceinline__ int b_col(int lane) { return ((lane >> 3) & 1) << 3; }
 
 // acc[d] += C (16 x NK accumulator tiles, rounded to bf16) * B, B = NK rows
-// of `b_src` [k][DMAX] read transposed: one warp's 16 x DMAX product.
-template <int DMAX, int NK>
+// of `b_src` [k][DMAX] (row stride LD) read transposed: one warp's 16 x DMAX
+// product. With LD > DMAX + 8, b_src may point at a column block of wider rows.
+template <int DMAX, int NK, int LD = DMAX + 8>
 __device__ __forceinline__ void acc_dot_rows(float (&acc)[DMAX / 8][4], const float (&c)[NK / 8][4],
                                              const bf16* b_src, int lane) {
-  constexpr int LD = DMAX + 8;
 #pragma unroll
   for (int kk = 0; kk < NK / 16; ++kk) {
     uint32_t a[4];
@@ -174,8 +174,8 @@ int set_smem(K kernel, size_t smem) {
   return 0;
 }
 
-bool bad_shape(int B, int H, int Tq, int S, int Dh) {
-  return Dh <= 0 || Dh > 128 || Dh % 16 != 0 || B <= 0 || H <= 0 || Tq <= 0 || S <= 0 || Tq > S ||
+bool bad_shape(int B, int H, int Tq, int S, int Dh, int dmax = 128) {
+  return Dh <= 0 || Dh > dmax || Dh % 16 != 0 || B <= 0 || H <= 0 || Tq <= 0 || S <= 0 || Tq > S ||
          B > 65535 || H > 65535;
 }
 

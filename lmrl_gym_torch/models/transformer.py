@@ -161,31 +161,37 @@ def _rotate_every_two(x):
     return torch.stack([-x2, x1], dim=-1).reshape(x.shape)
 
 
-def apply_rotary(
-    x: torch.Tensor,
+def rotary_tables(
     position_ids: torch.Tensor,
     rotary_dim: int,
     base: float = 10000.0,
     interleaved: bool = False,
-) -> torch.Tensor:
-    """x: [B, H, T, Dh]; rotary on the first rotary_dim dims.
-
-    interleaved=True is the GPT-J convention (rotate adjacent pairs);
-    False is the NeoX/LLaMA half-split."""
+    dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) [B, 1, T, rotary_dim] in `dtype` for positions [B, T]:
+    the same for every layer of a forward, so `Transformer.forward` makes
+    them once (at GPT-J's 28 layers, two trunks and 60-odd steps a rollout,
+    per-layer tables were ~90,000 small launches)."""
     inv_freq = 1.0 / (
-        base ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32, device=x.device) / rotary_dim)
+        base ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32, device=position_ids.device) / rotary_dim)
     )
     angles = position_ids[:, :, None].float() * inv_freq[None, None, :]  # [B,T,rd/2]
     sin = torch.sin(angles)[:, None, :, :]  # [B,1,T,rd/2]
     cos = torch.cos(angles)[:, None, :, :]
     if interleaved:
-        sin = sin.repeat_interleave(2, dim=-1).to(x.dtype)
-        cos = cos.repeat_interleave(2, dim=-1).to(x.dtype)
-        rot = _rotate_every_two
-    else:
-        sin = torch.cat([sin, sin], dim=-1).to(x.dtype)
-        cos = torch.cat([cos, cos], dim=-1).to(x.dtype)
-        rot = _rotate_half
+        return cos.repeat_interleave(2, dim=-1).to(dtype), sin.repeat_interleave(2, dim=-1).to(dtype)
+    return torch.cat([cos, cos], dim=-1).to(dtype), torch.cat([sin, sin], dim=-1).to(dtype)
+
+
+def apply_rotary(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor], interleaved: bool = False) -> torch.Tensor:
+    """x: [B, H, T, Dh]; rotary on its first rotary_dim dims, with `rope` =
+    `rotary_tables(...)` (cos, sin) [B, 1, T, rotary_dim].
+
+    interleaved=True is the GPT-J convention (rotate adjacent pairs);
+    False is the NeoX/LLaMA half-split."""
+    cos, sin = rope
+    rotary_dim = cos.shape[-1]
+    rot = _rotate_every_two if interleaved else _rotate_half
     x_rot, x_pass = x[..., :rotary_dim], x[..., rotary_dim:]
     x_rot = x_rot * cos + rot(x_rot) * sin
     return torch.cat([x_rot, x_pass], dim=-1)
@@ -203,7 +209,7 @@ class Attention(nn.Module):
         self,
         x: torch.Tensor,  # [B, T, D]
         bias: Optional[torch.Tensor],  # [B, T_kv] additive f32, None = all visible
-        position_ids: torch.Tensor,  # [B, T]
+        rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # rotary_tables of the positions; None = learned positions
         layer_cache: Optional[Tuple[torch.Tensor, torch.Tensor, int]],  # (k, v, index)
         drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,  # residual dropout
         attn_drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,  # probability dropout (training)
@@ -220,10 +226,9 @@ class Attention(nn.Module):
             return t.view(B, T, H, Dh).transpose(1, 2)
 
         q, k, v = (heads(t) for t in qkv.split(D, dim=-1))
-        if cfg.position_embedding == "rotary":
-            rd = cfg.rotary_dim or Dh
-            q = apply_rotary(q, position_ids, rd, cfg.rotary_base, cfg.rotary_interleaved)
-            k = apply_rotary(k, position_ids, rd, cfg.rotary_base, cfg.rotary_interleaved)
+        if rope is not None:
+            q = apply_rotary(q, rope, cfg.rotary_interleaved)
+            k = apply_rotary(k, rope, cfg.rotary_interleaved)
 
         sm_scale = 1.0 / math.sqrt(Dh)
         if ring is not None and layer_cache is None:
@@ -328,9 +333,9 @@ class Block(nn.Module):
             self.ln_2 = _norm(config, device, dtype)
         self.mlp = MLP(config, device, dtype)
 
-    def forward(self, x, bias, position_ids, layer_cache, drop=None, attn_drop=None, ring=None):
+    def forward(self, x, bias, rope, layer_cache, drop=None, attn_drop=None, ring=None):
         h = self.ln_1(x)
-        attn_out = self.attn(h, bias, position_ids, layer_cache, drop, attn_drop, ring)
+        attn_out = self.attn(h, bias, rope, layer_cache, drop, attn_drop, ring)
         if self.config.parallel_ffn:
             # GPT-J: mlp reads the same normed input; one residual add
             return x + attn_out + self.mlp(h, drop)
@@ -431,13 +436,17 @@ class Transformer(nn.Module):
             if cfg.resid_pdrop > 0:
                 drop = functools.partial(dropout, rate=cfg.resid_pdrop, generator=generator)
 
+        rope = None
+        if cfg.position_embedding == "rotary":
+            rope = rotary_tables(position_ids, cfg.rotary_dim or cfg.head_dim, cfg.rotary_base, cfg.rotary_interleaved,
+                                 dtype)
         for i, block in enumerate(self.h):
             layer_cache = (cache.k[i], cache.v[i], start) if cache is not None else None
             attn_drop = None
             if attn_dropout and cache is None:
                 attn_drop = functools.partial(dropout, rate=cfg.attn_pdrop, generator=generator,
                                               keep=None if attn_keep is None else attn_keep[i])
-            x = block(x, bias, position_ids, layer_cache, drop, attn_drop, ring)
+            x = block(x, bias, rope, layer_cache, drop, attn_drop, ring)
         x = self.ln_f(x)
 
         if cfg.tie_word_embeddings:

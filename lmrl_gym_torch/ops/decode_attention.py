@@ -1,5 +1,7 @@
 """Single-token KV-cache decode attention: CUDA kernel `csrc/decode_attn.cu`
-and its plain PyTorch version.
+(with a route of its own for Dh > 128 at small B·H, as GPT-J's served
+turns give it: 8 lanes per key row, each holding 32 dims) and its plain
+PyTorch version.
 
 Replaces the Pallas kernel `lmrl_gym_tpu/ops/decode_attention.py::
 _decode1_kernel` (K4) behind `_decode_attention_dispatch`. The function:
@@ -85,6 +87,9 @@ def _check_cuda_inputs(q, k, v, index, bias):
     for name, t in (("k", k), ("v", v)):
         if t.data_ptr() % 16 or any(s % align for s in t.stride()[:3]):
             raise ValueError(f"decode_attn: cache {name} rows must be 16-byte aligned")
+    # the Dh > 128 route reads q with the same 16-byte loads
+    if Dh > 128 and (q.data_ptr() % 16 or any(s % align for s, n in zip(q.stride()[:2], q.shape[:2]) if n > 1)):
+        raise ValueError(f"decode_attn: at head dim {Dh} q's rows must be 16-byte aligned")
     if bias is not None:
         if bias.dtype != torch.float32 or bias.shape != (B, S) or bias.stride(1) != 1 or bias.device != q.device:
             raise ValueError(f"decode_attn: bias must be float32 [B, S] = [{B}, {S}] on {q.device} with a contiguous last dim")

@@ -37,14 +37,17 @@ TILE = 64  # rows a block owns: queries (K2) or keys (K3)
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 256])
 def test_variant_choice(dtype, head_dim):
     """bf16 with Dh a multiple of 16 up to 128 takes the tensor cores; f32
-    (TF32 is off) and Dh = 256 keep the fp32 CUDA-core kernels."""
+    (TF32 is off) and Dh = 256 keep the fp32 CUDA-core kernels (the
+    forward's tensor cores go to 256: tests/test_torch_flash_fwd_tc.py)."""
     want = "tc" if dtype == torch.bfloat16 and head_dim <= 128 else "simt"
-    assert tfa._variant(dtype, head_dim) == want
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert tfa._variant(dtype, head_dim, name) == want
 
 
 def test_variant_choice_needs_whole_k16_steps():
-    assert tfa._variant(torch.bfloat16, 24) == "simt"
-    assert tfa._variant(torch.bfloat16, 48) == "tc"
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert tfa._variant(torch.bfloat16, 24, name) == "simt"
+        assert tfa._variant(torch.bfloat16, 48, name) == "tc"
 
 
 # ---- (b) the tile schedule -------------------------------------------------

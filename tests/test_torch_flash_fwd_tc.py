@@ -4,6 +4,7 @@ The kernel runs only on the card (tests/test_torch_kernels.py holds it to
 its plain version there). What is checked here:
 
 (a) `_variant`: which forward kernel takes each (dtype, head dim).
+    (The Dh = 256 route's schedule and arithmetic: tests/test_torch_gptj_kernel.py.)
 (b) The tile schedule of both block shapes: a mirror of the kernel's index
     arithmetic (which (b, h) and query rows each warp owns, which key tiles
     its stream loads up to `kv_end`, which of them the warp computes on, and
@@ -39,11 +40,12 @@ LSE_TOL = 1e-3
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("head_dim", [16, 24, 32, 48, 64, 128, 256])
 def test_variant_choice(dtype, head_dim):
-    """bf16 with Dh a multiple of 16 up to 128 takes the tensor cores, in
-    both directions; f32 (TF32 is off), Dh = 24 (not whole k16 steps) and
-    Dh = 256 keep the fp32 CUDA-core kernels."""
-    want = "tc" if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128 else "simt"
-    assert tfa._variant(dtype, head_dim) == want
+    """bf16 with Dh a multiple of 16 up to 256 (GPT-J's) takes the forward's
+    tensor cores; f32 (TF32 is off) and Dh = 24 (not whole k16 steps) keep
+    the fp32 CUDA-core kernel. The backward stops at 128
+    (tests/test_torch_flash_bwd_tc.py)."""
+    want = "tc" if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 256 else "simt"
+    assert tfa._variant(dtype, head_dim, "flash_fwd") == want
 
 
 # ---- (b) the tile schedule -------------------------------------------------

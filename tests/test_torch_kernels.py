@@ -140,14 +140,15 @@ def _check_fwd_against_plain(q, k, v, bias, variant: str):
 
 @pytest.mark.parametrize("variant", ["tc", "simt"])
 @pytest.mark.parametrize("Tq,S", FWD_SHAPES)
-@pytest.mark.parametrize("Dh", [16, 48, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 48, 64, 128, 144, 256])
 @pytest.mark.parametrize("padded", [False, True])
 def test_flash_fwd_variants_match_plain(cuda, monkeypatch, variant, Tq, S, Dh, padded):
     """Each forward variant, forced, in bf16: both block shapes of the
     tensor-core kernel (Tq ≤ 16: one (b, h) per warp; else 64 rows per
-    block), ragged S past the key tiles, Dh from 16 to 128, and left padding
-    that masks whole query rows."""
-    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim: variant)
+    block; above Dh = 128 the wide route's two shapes), ragged S past the
+    key tiles, Dh from 16 to 256 (144: the wide route zero-filling past
+    Dh), and left padding that masks whole query rows."""
+    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim, name: variant)
     B, H = 3, 2
     q, k, v = (_randn(B, H, T, Dh, dtype=torch.bfloat16, seed=i + Tq + S) for i, T in enumerate((Tq, S, S)))
     bias = _left_pad_bias(B, S, [0, min(3, S - 1), S - 1]) if padded else None
@@ -161,7 +162,7 @@ def test_flash_fwd_variants_take_strided_views(cuda, monkeypatch, variant, T, in
     [B, T, 3, H, Dh] projection (row stride 3·H·Dh), k/v the filled prefix
     cache[:, :, :index + T] of a [B, H, T_max, Dh] cache, and the bias row a
     [:, :S] slice of a [B, T_max] mask with left padding."""
-    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim: variant)
+    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim, name: variant)
     B, H, T_max, Dh = 3, 4, 128, 64
     S = index + T
     qkv = _randn(B, T, 3, H, Dh, dtype=torch.bfloat16, seed=3)
@@ -179,11 +180,60 @@ def test_flash_fwd_variants_take_strided_views(cuda, monkeypatch, variant, T, in
 def test_flash_fwd_variants_take_fused_qkv_views(cuda, monkeypatch, variant, T):
     """As the trunk calls K1 in training: q, k and v views into one fused
     [B, T, 3, H, Dh] projection, left-padded."""
-    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim: variant)
+    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim, name: variant)
     B, H, Dh = 3, 4, 64
     qkv = _randn(B, T, 3, H, Dh, dtype=torch.bfloat16, seed=T)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     _check_fwd_against_plain(q, k, v, _left_pad_bias(B, T, [0, 5, T // 2]), variant)
+
+
+@pytest.mark.parametrize("T,index,t_max,B,H", [(8, 0, 128, 4, 16), (10, 118, 128, 4, 16), (17, 40, 128, 2, 3),
+                                               (640, 0, 676, 2, 16), (129, 0, 130, 2, 2)])
+def test_flash_fwd_tc_takes_gptj_shapes(cuda, T, index, t_max, B, H):
+    """The route `_variant` picks for GPT-J (bf16, Dh = 256: tensor cores),
+    called as its trunk calls it: q from rotary (a fresh [B, H, T, 256]
+    tensor), k/v the filled prefix of a cache, a left-pad bias; the Wordle
+    appends (Tq ≤ 16: one (b, h) per block) and the prefills (64 rows per
+    block), the Text-Nav prefill of 640 among them."""
+    Dh, S = 256, index + T
+    assert tfa._variant(torch.bfloat16, Dh, "flash_fwd") == "tc"
+    q = _randn(B, H, T, Dh, dtype=torch.bfloat16, seed=T)
+    cache_k = _randn(B, H, t_max, Dh, dtype=torch.bfloat16, seed=1)
+    cache_v = _randn(B, H, t_max, Dh, dtype=torch.bfloat16, seed=2)
+    bias = _left_pad_bias(B, t_max, [0] + [min(S - 1, 5 + 7 * i) for i in range(B - 1)])[:, :S]
+    _check_fwd_against_plain(q, cache_k[:, :, :S], cache_v[:, :, :S], bias, "tc")
+
+
+@pytest.mark.parametrize("B,H,index,t_max,padded", [(256, 16, 8, 128, False), (256, 16, 127, 128, False),
+                                                    (16, 16, 675, 676, True), (3, 2, 300, 400, True)])
+@pytest.mark.parametrize("Dh", [136, 256])
+def test_decode_wide_route_matches_plain(cuda, B, H, index, t_max, padded, Dh):
+    """K4 above Dh = 128 at GPT-J's served shapes, bf16: the B=256
+    rollout's first and last fills (B·H = 4,096: the G = 32 kernel), a
+    Text-Nav turn's last step at B=16, left-padded, and a small batch (the
+    route of its own), and a ragged Dh = 136."""
+    q = _randn(B, H, 1, Dh, dtype=torch.bfloat16, seed=index)
+    k = _randn(B, H, t_max, Dh, dtype=torch.bfloat16, seed=1)
+    v = _randn(B, H, t_max, Dh, dtype=torch.bfloat16, seed=2)
+    bias = _left_pad_bias(B, t_max, [min(index, 3 * i) for i in range(B)]) if padded else None
+    before = tda.decode_attention.launches
+    out = tda.decode_attention(q, k, v, index, bias, Dh**-0.5)
+    assert tda.decode_attention.launches == before + 1
+    ref = tda._plain_decode_attention(q, k, v, index, bias, Dh**-0.5)
+    torch.cuda.synchronize()
+    assert excess(out, ref, torch.bfloat16).max().item() <= TOL[torch.bfloat16][0]
+
+
+def test_decode_wide_route_refuses_misaligned_q(cuda):
+    """Above Dh = 128 the decode kernel reads q by 16-byte loads: a q that
+    starts 2 bytes into its buffer is refused before any launch."""
+    B, H, Dh = 2, 2, 256
+    k, v = (_randn(B, H, 16, Dh, dtype=torch.bfloat16, seed=s) for s in (1, 2))
+    shifted = _randn(B * H * Dh + 1, dtype=torch.bfloat16, seed=3)[1:].view(B, H, 1, Dh)
+    before = tda.decode_attention.launches
+    with pytest.raises(ValueError):
+        tda.decode_attention(shifted, k, v, 5)
+    assert tda.decode_attention.launches == before
 
 
 @pytest.mark.parametrize("T", [16, 100, 160])
@@ -216,7 +266,7 @@ def test_flash_fwd_tc_refuses_misaligned_inputs(cuda):
     k, v = (_randn(B, H, T, Dh, dtype=torch.bfloat16, seed=s) for s in (1, 2))
     shifted = _randn(B * H * T * Dh + 1, dtype=torch.bfloat16, seed=4)[1:].view(B, H, T, Dh)
     wide_rows = _randn(B, H, T, Dh + 4, dtype=torch.bfloat16, seed=5)[..., :Dh]
-    assert tfa._variant(torch.bfloat16, Dh) == "tc"
+    assert tfa._variant(torch.bfloat16, Dh, "flash_fwd") == "tc"
     before = tfa.flash_fwd.launches
     for q in (shifted, wide_rows):
         with pytest.raises(ValueError):
@@ -288,7 +338,7 @@ def _check_bwd_against_plain(B, H, Tq, S, Dh, dtype, padded, seed, tc: bool):
 def test_flash_bwd_variants_match_plain(cuda, monkeypatch, variant, B, H, Tq, S, Dh, padded):
     """Each backward variant, forced, in bf16: ragged T (not a multiple of
     the 64-row tile), right-aligned queries, Dh from 16 to 128."""
-    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim: variant)
+    monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim, name: variant)
     _check_bwd_against_plain(B, H, Tq, S, Dh, torch.bfloat16, padded, seed=Tq + Dh, tc=variant == "tc")
 
 
@@ -334,6 +384,35 @@ def test_flash_attention_gradients_on_card(cuda, padded):
     assert (grads[0] - grads[1]).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("Tq,S", [(10, 128), (16, 40), (100, 100), (160, 160)])
+def test_gptj_tc_forward_feeds_cuda_core_backward(cuda, Tq, S):
+    """bf16 at GPT-J's Dh = 256 through autograd: K1 on the tensor cores
+    (its Tq ≤ 16 block shape and its prefill one), K2/K3 on CUDA cores,
+    left-padded rows, q/k/v as views into a fused projection. The gradients
+    match the plain backward on the forward's out and lse."""
+    B, H, Dh, dtype = 4, 2, 256, torch.bfloat16
+    g = torch.Generator().manual_seed(Tq + S)
+    qkv = torch.randn(B, S, 3, H, Dh, generator=g).to("cuda", dtype).requires_grad_()
+    n_pad = torch.tensor([0, 1, S // 2, S - 1])
+    bias = torch.where(torch.arange(S)[None, :] >= n_pad[:, None], 0.0, NEG_BIG).float().cuda()
+    rows = bias[:, S - Tq:] == 0
+    dout = torch.randn(B, Tq, H, Dh, generator=g).to("cuda", dtype).transpose(1, 2) * rows[:, None, :, None].to(dtype)
+    q = qkv[:, S - Tq:, 0].transpose(1, 2)
+    k, v = qkv[:, :, 1].transpose(1, 2), qkv[:, :, 2].transpose(1, 2)
+    wrappers = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    before = [(w.launches, w.tc_launches) for w in wrappers]
+    out = tfa.flash_attention(q, k, v, bias)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert [(w.launches - n, w.tc_launches - n_tc) for w, (n, n_tc) in zip(wrappers, before)] == [(1, 1), (1, 0), (1, 0)]
+    q, k, v = q.detach(), k.detach(), v.detach()
+    out, lse = tfa.flash_fwd(q, k, v, bias)
+    refs = tfa._plain_flash_backward(q, k, v, bias, out, lse, dout, True, 1.0 / Dh**0.5)
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, refs):
+        assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+        assert _grad_excess(got, ref, dtype).max().item() <= GRAD_TOL[dtype][0]
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = _randn(1, 2, 1, 24 + 4, dtype=torch.float32, seed=0)  # Dh = 28: not a multiple of 8
     with pytest.raises(ValueError):
@@ -350,7 +429,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     lse, delta = torch.zeros(B, H, T, device="cuda"), torch.zeros(B, H, T, device="cuda")
     shifted = _randn(B * H * T * Dh + 1, dtype=torch.bfloat16, seed=4)[1:].view(B, H, T, Dh)
     wide_rows = _randn(B, H, T, Dh + 4, dtype=torch.bfloat16, seed=5)[..., :Dh]
-    assert tfa._variant(torch.bfloat16, Dh) == "tc"
+    assert tfa._variant(torch.bfloat16, Dh, "flash_bwd_dq") == "tc"
     for q in (shifted, wide_rows):
         with pytest.raises(ValueError):
             tfa.flash_bwd_dq(q, k, v, None, lse, delta, dout)
