@@ -4,7 +4,8 @@
 // Replaces the Pallas kernels lmrl_gym_tpu/ops/flash_attention.py::
 // _flash_bwd_dq_kernel (K2) and _flash_bwd_dkv_kernel (K3), launched by
 // _flash_backward, for bf16 inputs with a head dim that is a multiple of 16
-// up to 128 (csrc/flash_bwd.cu keeps f32 and Dh = 256). Same functions:
+// up to 256: up to 128 the kernels below, above it (GPT-J's 256) the wide
+// kernels further down (csrc/flash_bwd.cu keeps f32). Same functions:
 //   s  = scale * Q K^T + bias, masked to -0.7 * FLT_MAX where a key lies past
 //        its query (queries right-aligned at offset = S - Tq),
 //   P  = exp(s - lse),  dS = P * (dO V^T - delta),  delta = rowsum(dO * O),
@@ -52,6 +53,16 @@
 // leaves half a block idle); K2 and K3 fused into one pass with dQ by
 // atomics; delta = rowsum(dO * O) computed inside the kernels instead of by
 // the caller; staging the epilogue through shared memory for 16-byte stores.
+//
+// At Dh = 256 (GPT-J; the wide kernels, design at their section below) the
+// bound at phase 3jt's ILQL step (B = 32, H = 16, T = 160) is device-memory
+// bytes: K2 moves 210 MB and does 10.1 GFLOP (0.063 ms of bytes against
+// 0.010 ms of tensor-core FLOPs), K3 252 MB and 13.5 GFLOP (0.075 against
+// 0.014 ms). At its BC window (B = 8, H = 16, T = 640) the bytes are the same
+// and the FLOPs rise to 40.3 and 53.8 GFLOP (0.041 and 0.054 ms), still
+// under the bytes. ptxas (-Xptxas -v, sm_90a, nvcc 12.9): the wide K2 and
+// K3 use 128 registers each (their cap for two blocks an SM), with 0 bytes
+// of spill stores and loads and no stack frame.
 
 #include "tc_common.cuh"
 
@@ -326,6 +337,340 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+// ---- Dh up to 256 -----------------------------------------------------------
+//
+// The kernels above keep a warp's 16 rows x Dh of f32 sums in registers: at
+// Dh = 256 that is 128 registers for K2's dQ and 256 for K3's dK and dV,
+// past the 255 a thread may hold. Here a block of 8 warps owns 32 rows
+// (queries in K2, keys in K3) in two strips of 16, and the 4 warps of a
+// strip split it two ways: warp w takes strip w % 2 and part p = w / 2, and
+// keeps the strip's sums for head-dim columns [64 p, +64) only; and it
+// computes the scores of the strip (S and dP in K2, S^T and dP^T in K3)
+// against rows [8 p, +8) of each streamed 32-row tile, over the whole head
+// dim, so no product is done twice. The warps of a strip then swap their
+// score blocks through shared memory: each stores its 16 x 8 block of dS
+// (K2) or of P^T and dS^T (K3), rounded to bf16 (the rounding the kernels
+// above give the A operand in registers), and after a barrier reads the
+// strip's full 16 x 32 block back with ldmatrix as the A operand of
+// dQ += dS K, or dV += P^T dO and dK += dS^T Q, over its 64 columns. Masks,
+// causal tile skipping, the fully masked rows' P = 1, the loads (a
+// two-stage cp.async ring of 32-row tiles) and the strided epilogue are the
+// kernels' above. With 104 and 107 KB of shared memory and at most 128
+// registers a thread, two blocks (16 warps) share an SM. 64-row blocks (two
+// warps a strip, 128 columns each) need 141 and 146 KB and 244 registers in
+// K3, so one block holds an SM alone with its first loads exposed: on an
+// H100 they were 13-24% slower at B = 32, H = 16, T = 160 and 3% at
+// B = 8, T = 640.
+//
+// On an H100 they read 0.47 (K2) and 0.45 (K3) of the bytes bound at
+// B = 32, T = 160 and 0.17 at B = 8, T = 640, where the FLOPs weigh more.
+// What they leave: the scores' products read Q (K2) or K (K3) from shared
+// memory once per streamed tile, the swap costs a barrier per tile, and
+// K3 re-streams Q and dO for every 32-key block; wgmma with operands in
+// shared memory, and TMA, are the route to the tensor cores' rate.
+constexpr int kWideD = 256;
+constexpr int kWideThreads = 256;         // 8 warps
+constexpr int kWideRows = 32;             // rows a block owns, in 2 strips of 16
+constexpr int kWideStrips = kWideRows / 16;
+constexpr int kWideBT = 32;               // rows of a streamed tile
+constexpr int kWideDW = kWideD * kWideStrips / 8;  // head-dim columns of a warp's sums: 64
+constexpr int kWideSH = kWideBT * kWideStrips / 8;  // tile rows a warp scores its strip against: 8
+constexpr int kXLD = kWideBT + 8;         // row stride (bf16) of the swapped 32 x 32 score blocks
+
+// Two 8x8 bf16 matrices; lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// acc += A (16 rows of `a_src`, kWideD deep) * B^T, B = 8 rows of `b_src`
+// (both with row stride kWideD + 8): one warp's 16 x 8 scores.
+__device__ __forceinline__ void rows_dot_8rows(float (&acc)[1][4], const bf16* a_src, const bf16* b_src, int lane) {
+  constexpr int LD = kWideD + 8;
+#pragma unroll 8  // fully unrolled, ptxas spills at the 128-register cap
+  for (int kk = 0; kk < kWideD / 16; ++kk) {
+    uint32_t a[4], b[2];
+    ldsm_x4(a, a_src + a_row(lane) * LD + kk * 16 + a_col(lane));
+    ldsm_x2(b, b_src + (lane & 7) * LD + kk * 16 + (((lane >> 3) & 1) << 3));  // (n 0-7, k 0-7), (n 0-7, k 8-15)
+    mma(acc[0], a, b[0], b[1]);
+  }
+}
+
+// acc += A * B: A = 16 rows x NK of bf16 in shared memory (row stride LDA),
+// B = NK rows of `b_src` (row stride LDB) read transposed, DW columns.
+template <int DW, int NK, int LDA, int LDB>
+__device__ __forceinline__ void smem_dot_rows(float (&acc)[DW / 8][4], const bf16* a_src, const bf16* b_src,
+                                              int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, a_src + a_row(lane) * LDA + kk * 16 + a_col(lane));
+#pragma unroll
+    for (int dp = 0; dp < DW / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_t(b, b_src + (kk * 16 + a_row(lane)) * LDB + dp * 16 + a_col(lane));
+      mma(acc[2 * dp], a, b[0], b[1]);
+      mma(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// A warp's 16 x 8 accumulator rounded to bf16 into rows g and g + 8 of
+// `dst` (row stride kXLD): the layout ldsm_x4 reads back as A.
+__device__ __forceinline__ void stash_rows(bf16* dst, const float (&c)[1][4], int g, int tq) {
+  *reinterpret_cast<uint32_t*>(dst + g * kXLD + 2 * tq) = pack_bf16(c[0][0], c[0][1]);
+  *reinterpret_cast<uint32_t*>(dst + (g + 8) * kXLD + 2 * tq) = pack_bf16(c[0][2], c[0][3]);
+}
+
+constexpr size_t kDqWideSmem =
+    sizeof(bf16) * ((2 * kWideRows + 4 * kWideBT) * (kWideD + 8) + kWideRows * kXLD) + sizeof(float) * 2 * kWideBT;
+
+__global__ void __launch_bounds__(kWideThreads, 2) flash_bwd_dq_tc_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ bias, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Tq, int S, int Dh, Strides qs,
+    Strides ks, Strides vs, Strides dos, Strides dqs, int64_t bias_sb, int offset, float scale, int causal) {
+  constexpr int LD = kWideD + 8;
+  constexpr int NT = kWideThreads;
+  constexpr int ROWS = kWideRows, BK = kWideBT, SH = kWideSH, DW = kWideDW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [ROWS][LD]
+  bf16* sDO = sQ + ROWS * LD;                // [ROWS][LD]
+  bf16* sK = sDO + ROWS * LD;                // [2][BK][LD]
+  bf16* sV = sK + 2 * BK * LD;               // [2][BK][LD]
+  bf16* sDS = sV + 2 * BK * LD;              // [ROWS][kXLD] dS of the current tile
+  float* sB = reinterpret_cast<float*>(sDS + ROWS * kXLD);  // [2][BK] bias
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int strip = warp % kWideStrips, part = warp / kWideStrips;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const float* biasb = bias ? bias + b * bias_sb : nullptr;
+  const int q_last = min(q0 + ROWS, Tq) - 1;
+  const int kv_end = causal ? min(S, offset + q_last + 1) : S;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  load_tile<ROWS, kWideD, NT>(sQ, q + b * qs.b + h * qs.h, qs.t, q0, Tq, Dh, threadIdx.x);
+  load_tile<ROWS, kWideD, NT>(sDO, dout + b * dos.b + h * dos.h, dos.t, q0, Tq, Dh, threadIdx.x);
+  cp_async_commit();
+  auto load_kv = [&](int it) {
+    const int stage = it & 1;
+    load_tile<BK, kWideD, NT>(sK + stage * BK * LD, kb, ks.t, it * BK, kv_end, Dh, threadIdx.x);
+    load_tile<BK, kWideD, NT>(sV + stage * BK * LD, vb, vs.t, it * BK, kv_end, Dh, threadIdx.x);
+    if (biasb) load_vec<BK, NT>(sB + stage * BK, biasb, it * BK, kv_end, threadIdx.x);
+    cp_async_commit();
+  };
+  load_kv(0);
+
+  const int r_lo = strip * 16 + g;
+  int t_row[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    t_row[i] = q0 + r_lo + 8 * i;
+    const int64_t stat = ((int64_t)b * H + h) * Tq + t_row[i];
+    lse_r[i] = t_row[i] < Tq ? lse[stat] : 0.f;
+    delta_r[i] = t_row[i] < Tq ? delta[stat] : 0.f;
+  }
+  bf16* wDS = sDS + strip * 16 * kXLD;  // the strip's 16 x BK block of dS
+
+  float acc[DW / 8][4];
+  zero(acc);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      load_kv(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* cK = sK + (it & 1) * BK * LD;
+    const bf16* cV = sV + (it & 1) * BK * LD;
+    const float* cB = sB + (it & 1) * BK + part * SH;
+
+    // S and dP of the strip's rows against keys [part * SH, +SH) of the tile
+    float s[SH / 8][4], dp[SH / 8][4];
+    zero(s);
+    zero(dp);
+    rows_dot_8rows(s, sQ + strip * 16 * LD, cK + part * SH * LD, lane);
+    rows_dot_8rows(dp, sDO + strip * 16 * LD, cV + part * SH * LD, lane);
+
+    const int j0 = it * BK + part * SH;
+#pragma unroll
+    for (int n = 0; n < SH / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jj = n * 8 + 2 * tq + (e & 1), j = j0 + jj, i = e >> 1;
+        float ds = 0.f;
+        if (t_row[i] < Tq && j < kv_end) {
+          float sc = s[n][e] * scale;
+          if (biasb) sc += cB[jj];
+          if (causal && j > offset + t_row[i]) sc = kNegBig;
+          ds = __expf(sc - lse_r[i]) * (dp[n][e] - delta_r[i]);
+        }
+        s[n][e] = ds;
+      }
+    }
+    stash_rows(wDS + part * SH, s, g, tq);
+    __syncthreads();  // every part of every strip's dS is in shared memory
+    smem_dot_rows<DW, BK, kXLD, LD>(acc, wDS, cK + part * DW, lane);  // dQ[:, cols] += dS K[:, cols]
+    __syncthreads();  // this stage and sDS are consumed before the next tile overwrites them
+  }
+
+  store_rows<DW>(dq + b * dqs.b + h * dqs.h + q0 * dqs.t + part * DW, dqs.t, acc, r_lo, Tq - q0, Dh - part * DW,
+                 scale, tq);
+}
+
+constexpr size_t kDkvWideSmem =
+    sizeof(bf16) * ((2 * kWideRows + 4 * kWideBT) * (kWideD + 8) + 2 * kWideRows * kXLD) + sizeof(float) * 4 * kWideBT;
+
+__global__ void __launch_bounds__(kWideThreads, 2) flash_bwd_dkv_tc_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ bias, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Tq, int S,
+    int Dh, Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs, int64_t bias_sb,
+    int offset, float scale, int causal) {
+  constexpr int LD = kWideD + 8;
+  constexpr int NT = kWideThreads;
+  constexpr int ROWS = kWideRows, BQ = kWideBT, SH = kWideSH, DW = kWideDW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);  // [ROWS][LD]
+  bf16* sV = sK + ROWS * LD;                 // [ROWS][LD]
+  bf16* sQ = sV + ROWS * LD;                 // [2][BQ][LD]
+  bf16* sDO = sQ + 2 * BQ * LD;              // [2][BQ][LD]
+  bf16* sP = sDO + 2 * BQ * LD;              // [ROWS][kXLD] P^T of the current tile
+  bf16* sDS = sP + ROWS * kXLD;              // [ROWS][kXLD] dS^T of the current tile
+  float* sL = reinterpret_cast<float*>(sDS + ROWS * kXLD);  // [2][BQ] lse
+  float* sD = sL + 2 * BQ;                                   // [2][BQ] delta
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int strip = warp % kWideStrips, part = warp / kWideStrips;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* dob = dout + b * dos.b + h * dos.h;
+  const float* lseb = lse + ((int64_t)b * H + h) * Tq;
+  const float* deltab = delta + ((int64_t)b * H + h) * Tq;
+  const int it0 = causal ? max(0, k0 - offset) / BQ : 0;
+  const int n_tiles = (Tq + BQ - 1) / BQ;
+
+  load_tile<ROWS, kWideD, NT>(sK, k + b * ks.b + h * ks.h, ks.t, k0, S, Dh, threadIdx.x);
+  load_tile<ROWS, kWideD, NT>(sV, v + b * vs.b + h * vs.h, vs.t, k0, S, Dh, threadIdx.x);
+  cp_async_commit();
+  auto load_q = [&](int it) {
+    const int stage = it & 1;
+    load_tile<BQ, kWideD, NT>(sQ + stage * BQ * LD, qb, qs.t, it * BQ, Tq, Dh, threadIdx.x);
+    load_tile<BQ, kWideD, NT>(sDO + stage * BQ * LD, dob, dos.t, it * BQ, Tq, Dh, threadIdx.x);
+    load_vec<BQ, NT>(sL + stage * BQ, lseb, it * BQ, Tq, threadIdx.x);
+    load_vec<BQ, NT>(sD + stage * BQ, deltab, it * BQ, Tq, threadIdx.x);
+    cp_async_commit();
+  };
+  if (it0 < n_tiles) load_q(it0);
+
+  const int r_lo = strip * 16 + g;
+  int j_row[2];
+  float bias_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    j_row[i] = k0 + r_lo + 8 * i;
+    bias_r[i] = (bias && j_row[i] < S) ? bias[b * bias_sb + j_row[i]] : 0.f;
+  }
+  bf16* wP = sP + strip * 16 * kXLD;  // the strip's 16 x BQ blocks of P^T and dS^T
+  bf16* wDS = sDS + strip * 16 * kXLD;
+
+  float acc_k[DW / 8][4], acc_v[DW / 8][4];
+  zero(acc_k);
+  zero(acc_v);
+
+  for (int it = it0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      load_q(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* cQ = sQ + (it & 1) * BQ * LD;
+    const bf16* cDO = sDO + (it & 1) * BQ * LD;
+    const float* cL = sL + (it & 1) * BQ + part * SH;
+    const float* cD = sD + (it & 1) * BQ + part * SH;
+
+    // S^T and dP^T of the strip's keys against queries [part * SH, +SH) of the tile
+    float p[SH / 8][4], ds[SH / 8][4];
+    zero(p);
+    zero(ds);
+    rows_dot_8rows(p, sK + strip * 16 * LD, cQ + part * SH * LD, lane);
+    rows_dot_8rows(ds, sV + strip * 16 * LD, cDO + part * SH * LD, lane);
+
+    const int t0 = it * BQ + part * SH;
+#pragma unroll
+    for (int n = 0; n < SH / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tt = n * 8 + 2 * tq + (e & 1), t = t0 + tt, i = e >> 1;
+        float pv = 0.f, dsv = 0.f;
+        if (j_row[i] < S && t < Tq) {
+          float sc = p[n][e] * scale + bias_r[i];
+          if (causal && j_row[i] > offset + t) sc = kNegBig;
+          pv = __expf(sc - cL[tt]);
+          dsv = pv * (ds[n][e] - cD[tt]);
+        }
+        p[n][e] = pv;
+        ds[n][e] = dsv;
+      }
+    }
+    stash_rows(wP + part * SH, p, g, tq);
+    stash_rows(wDS + part * SH, ds, g, tq);
+    __syncthreads();  // every part of every strip's P^T and dS^T is in shared memory
+    smem_dot_rows<DW, BQ, kXLD, LD>(acc_v, wP, cDO + part * DW, lane);  // dV[:, cols] += P^T dO[:, cols]
+    smem_dot_rows<DW, BQ, kXLD, LD>(acc_k, wDS, cQ + part * DW, lane);  // dK[:, cols] += dS^T Q[:, cols]
+    __syncthreads();  // this stage, sP and sDS are consumed before the next tile overwrites them
+  }
+  cp_async_wait<0>();  // K/V's group when the loop ran no iteration
+
+  const int c0 = part * DW;
+  store_rows<DW>(dk + b * dks.b + h * dks.h + k0 * dks.t + c0, dks.t, acc_k, r_lo, S - k0, Dh - c0, scale, tq);
+  store_rows<DW>(dv + b * dvs.b + h * dvs.h + k0 * dvs.t + c0, dvs.t, acc_v, r_lo, S - k0, Dh - c0, 1.f, tq);
+}
+
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* dout, const void* bias, const void* lse,
+                   const void* delta, void* dq, int B, int H, int Tq, int S, int Dh, Strides qs, Strides ks,
+                   Strides vs, Strides dos, Strides dqs, int64_t bias_sb, int offset, float scale, int causal,
+                   cudaStream_t stream) {
+  constexpr size_t smem = kDqWideSmem;
+  auto kernel = flash_bwd_dq_tc_wide_kernel;
+  if (int rc = set_smem(kernel, smem)) return rc;
+  dim3 grid((Tq + kWideRows - 1) / kWideRows, H, B);
+  kernel<<<grid, kWideThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(bias), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, Tq, S, Dh, qs, ks, vs, dos, dqs, bias_sb,
+      offset, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout, const void* bias,
+                    const void* lse, const void* delta, void* dk, void* dv, int B, int H, int Tq, int S, int Dh,
+                    Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs, int64_t bias_sb,
+                    int offset, float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = kDkvWideSmem;
+  auto kernel = flash_bwd_dkv_tc_wide_kernel;
+  if (int rc = set_smem(kernel, smem)) return rc;
+  dim3 grid((S + kWideRows - 1) / kWideRows, H, B);
+  kernel<<<grid, kWideThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(bias), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq, S, Dh, qs, ks,
+      vs, dos, dks, dvs, bias_sb, offset, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // bf16 q, k, v, dout and gradients, indexed by (b, h, t) strides with a
@@ -351,7 +696,8 @@ extern "C" int flash_bwd_dq_tc(const void* q, const void* k, const void* v, cons
     scale, causal, st
   if (Dh <= 32) return launch_dq<32>(DQ_ARGS);
   if (Dh <= 64) return launch_dq<64>(DQ_ARGS);
-  return launch_dq<128>(DQ_ARGS);
+  if (Dh <= 128) return launch_dq<128>(DQ_ARGS);
+  return launch_dq_wide(DQ_ARGS);
 #undef DQ_ARGS
 }
 
@@ -374,6 +720,7 @@ extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v, con
     offset, scale, causal, st
   if (Dh <= 32) return launch_dkv<32>(DKV_ARGS);
   if (Dh <= 64) return launch_dkv<64>(DKV_ARGS);
-  return launch_dkv<128>(DKV_ARGS);
+  if (Dh <= 128) return launch_dkv<128>(DKV_ARGS);
+  return launch_dkv_wide(DKV_ARGS);
 #undef DKV_ARGS
 }

@@ -496,7 +496,7 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v, const v
                             long long v_st, long long o_sb, long long o_sh, long long o_st, long long bias_sb,
                             int offset, float scale, int causal, void* stream) {
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st}, vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
-  if (bad_shape(B, H, Tq, S, Dh, kWideD) || misaligned(q, qs) || misaligned(k, ks) || misaligned(v, vs) ||
+  if (bad_shape(B, H, Tq, S, Dh) || misaligned(q, qs) || misaligned(k, ks) || misaligned(v, vs) ||
       misaligned_out(out, os)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -174,8 +174,8 @@ int set_smem(K kernel, size_t smem) {
   return 0;
 }
 
-bool bad_shape(int B, int H, int Tq, int S, int Dh, int dmax = 128) {
-  return Dh <= 0 || Dh > dmax || Dh % 16 != 0 || B <= 0 || H <= 0 || Tq <= 0 || S <= 0 || Tq > S ||
+bool bad_shape(int B, int H, int Tq, int S, int Dh) {
+  return Dh <= 0 || Dh > 256 || Dh % 16 != 0 || B <= 0 || H <= 0 || Tq <= 0 || S <= 0 || Tq > S ||
          B > 65535 || H > 65535;
 }
 

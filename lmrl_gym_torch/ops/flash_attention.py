@@ -1,10 +1,9 @@
 """Causal flash attention: the forward kernel (K1) and the two backward
 kernels (K2, K3), each in two variants — `csrc/flash_fwd_tc.cu` and
 `csrc/flash_bwd_tc.cu` on the tensor cores for bf16 with Dh a multiple of
-16 (up to 256 forward, 128 backward), `csrc/flash_fwd.cu` and
-`csrc/flash_bwd.cu` on the fp32 CUDA cores for the rest; `_variant`
-chooses per kernel — their plain PyTorch versions, and the
-`torch.autograd.Function` that joins them.
+16 up to 256, `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu` on the fp32
+CUDA cores for f32; `_variant` chooses per kernel — their plain PyTorch
+versions, and the `torch.autograd.Function` that joins them.
 
 Replaces the Pallas kernels of `lmrl_gym_tpu/ops/flash_attention.py`:
 `_flash_kernel` (K1, behind `_flash_forward`), `_flash_bwd_dq_kernel` (K2)
@@ -25,9 +24,10 @@ prefills (Tq = S = 640) weigh more on the tensor cores. The "tc" kernels
 run bf16 mma.sync with f32 sums behind a 16-byte cp.async ring; the
 forward's block shape follows Tq (64 query rows per block, or one (b, h)
 per warp for Tq ≤ 16; at Dh > 128, Q in shared memory and one (b, h) per
-4-warp block for Tq ≤ 16). The "simt" kernels stream tiles through shared
-memory in fp32. See the kernel sources for what each leaves on the
-table.
+4-warp block for Tq ≤ 16; at Dh > 128 the backward's 8-warp blocks of 32
+rows split the head dim of their sums four ways). The "simt" kernels
+stream tiles through shared memory in fp32. See the kernel sources for
+what each leaves on the table.
 
 Unlike the JAX package (which used the kernels only for T ≥ 1024 on a TPU),
 the port runs them for every attention with more than one query on CUDA:
@@ -145,19 +145,17 @@ def _kernel(name: str, variant: str):
 
 
 # the widest head dim each kernel's tensor-core variant takes
-_TC_MAX_HEAD_DIM = {"flash_fwd": 256, "flash_bwd_dq": 128, "flash_bwd_dkv": 128}
+_TC_MAX_HEAD_DIM = {"flash_fwd": 256, "flash_bwd_dq": 256, "flash_bwd_dkv": 256}
 
 
 def _variant(dtype: torch.dtype, head_dim: int, name: str) -> str:
     """Which variant of kernel `name` (K1 "flash_fwd"; K2, K3 "flash_bwd_dq",
     "flash_bwd_dkv") takes inputs of this dtype and head dim: "tc"
     (`csrc/flash_{fwd,bwd}_tc.cu`, tensor cores) for bf16 with a head dim
-    that is a multiple of 16, up to 256 for the forward (GPT-J's Dh = 256
-    included) and up to 128 for the backward; "simt" (`csrc/flash_fwd.cu`,
-    `csrc/flash_bwd.cu`, fp32 CUDA cores) for the rest: f32, whose products
-    would otherwise go through TF32 (off by the port's rule,
-    `core/device.py`), and the backward at Dh = 256, which reads the
-    tensor-core forward's lse as it reads its own."""
+    that is a multiple of 16 up to 256 (GPT-J's Dh = 256 included);
+    "simt" (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, fp32 CUDA cores) for
+    the rest: f32, whose products would otherwise go through TF32 (off by
+    the port's rule, `core/device.py`)."""
     if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= _TC_MAX_HEAD_DIM[name]:
         return "tc"
     return "simt"

@@ -25,6 +25,7 @@ from lmrl_gym_torch.models import transformer as ttr
 from lmrl_gym_torch.models.config import tiny_test_config as ttiny
 from lmrl_gym_torch.models.convert import head_params_from_jax, params_from_jax
 from lmrl_gym_torch.models.interface import LMCore as TCore
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 B = 4
 STATE_FIELDS = ("knowledge", "guess_hist", "n_guesses", "last_invalid", "done", "reward")

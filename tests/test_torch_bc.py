@@ -39,8 +39,8 @@ GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 PARAM_ATOL, PARAM_RTOL, NOISE = 2e-6, 1e-4, 1e-5
 
 
-def _pair(non_action_weight):
-    jcfg, tcfg = jtiny(), ttiny()
+def _pair(non_action_weight, **cfg_kw):
+    jcfg, tcfg = jtiny(**cfg_kw), ttiny(**cfg_kw)
     jparams = init_params(jcfg, jax.random.PRNGKey(1))
     model = Transformer(tcfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), tcfg))

@@ -13,6 +13,7 @@ import torch
 from lmrl_gym_tpu.envs.chess import vector as jvec
 from lmrl_gym_torch.envs.chess import engine as tengine
 from lmrl_gym_torch.envs.chess import vector as tvec
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 B = 64
 

@@ -30,6 +30,7 @@ from lmrl_gym_torch.models.convert import head_params_from_jax, params_from_jax
 from lmrl_gym_torch.models.interface import LMCore as TCore
 from lmrl_gym_torch.text.frames import Text as TText
 from lmrl_gym_torch.text.tokenizer import ByteTokenizer as TTok
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 B, T_PROMPT, N_NEW, P, L = 4, 9, 6, 5, 5
 PAD, EOS = 256, 10

@@ -28,6 +28,7 @@ from lmrl_gym_torch.models.convert import cql_state_from_jax, head_params_from_j
 from lmrl_gym_torch.models.interface import LMCore as TCore
 from lmrl_gym_torch.models.transformer import Transformer
 from test_torch_ilql import GRAD_TOL, LOSS_TOL, PAD, STEPS, _assert_params_close, _batch, _flat, _txs
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 CASES = {
     "default": dict(),

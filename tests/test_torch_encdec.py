@@ -42,6 +42,7 @@ from lmrl_gym_tpu.algos.value_policy import Seq2SeqServer as JSeq2SeqServer
 from lmrl_gym_tpu.envs import lm_oracle as jlo
 from lmrl_gym_tpu.models import encdec as je
 from lmrl_gym_tpu.models.generation import SamplingConfig as JSamplingConfig
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-5)
 LOSS_TOL, GRAD_TOL = dict(atol=1e-5, rtol=1e-5), dict(atol=1e-4, rtol=1e-4)

@@ -4,7 +4,7 @@ The kernels run only on the card (tests/test_torch_kernels.py holds them to
 their plain versions there). What is checked here:
 
 (a) `_variant`: which kernels take each (dtype, head dim) the port's
-    configs use.
+    configs use (bf16 up to Dh = 256, GPT-J's, on the tensor cores).
 (b) The tile schedule (blocks own 64 rows and stream the other side in
     32-row tiles): a mirror of the kernels' index arithmetic (the last key
     tile a K2 block streams, the first query tile a K3 block streams)
@@ -19,6 +19,16 @@ their plain versions there). What is checked here:
     well inside the tolerance's 2⁻⁶ relative, so the tolerance needs no
     widening.
 (d) The alignment rule the tensor-core wrappers enforce.
+(e) The wide kernels for Dh > 128 (`flash_bwd_{dq,dkv}_tc_wide_kernel`):
+    a mirror of how a block's 8 warps share its 32 rows — warp w owns the
+    16-row strip w % 2, accumulates head-dim columns [64 (w // 2), +64) of
+    it, and scores the strip against rows [8 (w // 2), +8) of each
+    streamed 32-row tile — and of the blocks' tile schedule, against a
+    brute-force causal mask: every visible pair scored exactly once, every
+    accumulator element owned exactly once. Their arithmetic emulated over that schedule (P and dS
+    rounded to bf16 where the warps swap them through shared memory, f32
+    sums tile by tile) against the JAX package's `_flash_backward` at
+    Dh = 256 in interpret mode, at GRAD_TOL.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -36,10 +46,10 @@ TILE = 64  # rows a block owns: queries (K2) or keys (K3)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 256])
 def test_variant_choice(dtype, head_dim):
-    """bf16 with Dh a multiple of 16 up to 128 takes the tensor cores; f32
-    (TF32 is off) and Dh = 256 keep the fp32 CUDA-core kernels (the
-    forward's tensor cores go to 256: tests/test_torch_flash_fwd_tc.py)."""
-    want = "tc" if dtype == torch.bfloat16 and head_dim <= 128 else "simt"
+    """bf16 with Dh a multiple of 16 up to 256 takes the tensor cores (the
+    wide kernels above 128); f32 (TF32 is off) keeps the fp32 CUDA-core
+    kernels."""
+    want = "tc" if dtype == torch.bfloat16 else "simt"
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert tfa._variant(dtype, head_dim, name) == want
 
@@ -55,19 +65,21 @@ def test_variant_choice_needs_whole_k16_steps():
 BK = BQ = 32  # rows of the streamed tiles: keys (K2, launch_dq) and queries (K3, launch_dkv)
 
 
-def k2_key_tiles(q_tile, Tq, S):
-    """Mirror of flash_bwd_dq_tc_kernel: the block of query tile `q_tile`
-    streams key tiles 0 .. ceil(kv_end / BK) − 1 and masks keys at or past
-    kv_end = min(S, offset + q_last + 1)."""
-    q_last = min((q_tile + 1) * TILE, Tq) - 1
+def k2_key_tiles(q_tile, Tq, S, tile=TILE):
+    """Mirror of flash_bwd_dq_tc_kernel (and of the wide kernel, whose
+    blocks own `tile` = 32 rows): the block of query tile `q_tile` streams
+    key tiles 0 .. ceil(kv_end / BK) − 1 and masks keys at or past kv_end =
+    min(S, offset + q_last + 1)."""
+    q_last = min((q_tile + 1) * tile, Tq) - 1
     kv_end = min(S, S - Tq + q_last + 1)
     return range((kv_end + BK - 1) // BK), kv_end
 
 
-def k3_query_tiles(k_tile, Tq, S):
-    """Mirror of flash_bwd_dkv_tc_kernel: the block of key tile `k_tile`
-    streams query tiles from max(0, k0 − offset) // BQ to the end."""
-    it0 = max(0, k_tile * TILE - (S - Tq)) // BQ
+def k3_query_tiles(k_tile, Tq, S, tile=TILE):
+    """Mirror of flash_bwd_dkv_tc_kernel (and of the wide kernel): the
+    block of key tile `k_tile` streams query tiles from max(0, k0 − offset)
+    // BQ to the end."""
+    it0 = max(0, k_tile * tile - (S - Tq)) // BQ
     return range(it0, (Tq + BQ - 1) // BQ)
 
 
@@ -127,11 +139,15 @@ def interpret(monkeypatch):
     monkeypatch.setattr(jfa, "_FORCE_INTERPRET", True)
 
 
-@pytest.mark.parametrize("Tq,S", [(160, 160), (96, 160)])
-def test_tc_arithmetic_matches_jax_backward(interpret, Tq, S):
-    B, H, Dh = 2, 2, 64
+def _jax_backward_case(Tq, S, Dh):
+    """bf16 inputs from a seed (batch 1's first 37 keys padded, its fully
+    masked query rows with a zero cotangent, as every loss gives them), the
+    JAX package's bf16 forward and Pallas backward on them, and the
+    backward's inputs as torch tensors → (jgrads, (q, k, v, bias, lse,
+    delta, dout), scale)."""
+    B, H = 2, 2
     scale = 1.0 / Dh**0.5
-    rng = np.random.default_rng(Tq + S)
+    rng = np.random.default_rng(Tq + S + Dh)
     q, g = (rng.standard_normal((B, H, Tq, Dh), np.float32) for _ in range(2))
     k, v = (rng.standard_normal((B, H, S, Dh), np.float32) for _ in range(2))
     bias = np.zeros((B, S), np.float32)
@@ -141,23 +157,28 @@ def test_tc_arithmetic_matches_jax_backward(interpret, Tq, S):
     jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
     jout, jlse = jfa._flash_forward(jq, jk, jv, jnp.asarray(bias), True, scale, 128, 128)
     jgrads = jfa._flash_backward(jq, jk, jv, jnp.asarray(bias), jout, jlse, jg, True, scale, 128, 128)[:3]
-
-    def to_torch(a):
-        return torch.from_numpy(np.array(jnp.asarray(a, jnp.float32)))
-
     tq, tk, tv, tg, out = (to_torch(a).to(torch.bfloat16) for a in (jq, jk, jv, jg, jout))
-    lse, tbias = to_torch(jlse), torch.from_numpy(bias)
-    delta = tfa._delta(out, tg)
-    emulated = tc_emulation(tq, tk, tv, tbias, lse, delta, tg, scale)
-    plain = (tfa._plain_bwd_dq(tq, tk, tv, tbias, lse, delta, tg, True, scale),
-             *tfa._plain_bwd_dkv(tq, tk, tv, tbias, lse, delta, tg, True, scale))
+    return [to_torch(j) for j in jgrads], (tq, tk, tv, torch.from_numpy(bias), to_torch(jlse), tfa._delta(out, tg), tg), scale
+
+
+def to_torch(a):
+    return torch.from_numpy(np.array(jnp.asarray(a, jnp.float32)))
+
+
+def _check_against_jax(emulated, args, jgrads, scale):
+    plain = (tfa._plain_bwd_dq(*args, True, scale), *tfa._plain_bwd_dkv(*args, True, scale))
     for name, e, p, j in zip(("dq", "dk", "dv"), emulated, plain, jgrads):
-        j = to_torch(j)
         assert e.shape == j.shape, name
         assert torch.isfinite(e.float()).all(), name
         assert excess(e, j) <= GRAD_TOL[0], name  # against the JAX package's Pallas backward
         assert excess(e, p) <= GRAD_TOL[0], name  # against the plain version chip_smoke.py holds the kernel to
         assert excess(p, j) <= GRAD_TOL[0], name
+
+
+@pytest.mark.parametrize("Tq,S", [(160, 160), (96, 160)])
+def test_tc_arithmetic_matches_jax_backward(interpret, Tq, S):
+    jgrads, args, scale = _jax_backward_case(Tq, S, 64)
+    _check_against_jax(tc_emulation(*args, scale), args, jgrads, scale)
 
 
 # ---- (d) alignment ------------------------------------------------------------
@@ -196,3 +217,94 @@ def test_cpu_bf16_backward_takes_plain_path_and_counts_nothing():
     dk, dv = tfa.flash_bwd_dkv(q, k, v, None, lse, delta, g)
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     assert [(w.launches, w.tc_launches) for w in wrappers] == before
+
+
+# ---- (e) the wide kernels (Dh > 128) ---------------------------------------------
+
+WIDE_WARPS, WIDE_ROWS, STRIP, WIDE_D = 8, 32, 16, 256  # WideShape<kWideRows = 32>
+STRIPS = WIDE_ROWS // STRIP
+SPLIT = WIDE_WARPS // STRIPS  # warps of a strip
+DW, SH = WIDE_D // SPLIT, BK // SPLIT  # head-dim columns of a warp's sums; tile rows it scores
+
+
+def wide_warp_share(w):
+    """Mirror of the wide kernels' split over a block's 8 warps: (the
+    block rows of warp w's strip, the head-dim columns of its sums, the rows
+    of a streamed tile it scores its strip against)."""
+    strip, part = w % STRIPS, w // STRIPS
+    return (np.arange(STRIP * strip, STRIP * (strip + 1)), np.arange(DW * part, DW * (part + 1)),
+            np.arange(SH * part, SH * (part + 1)))
+
+
+def test_wide_warps_own_each_sum_once():
+    own = np.zeros((WIDE_ROWS, WIDE_D), int)
+    for w in range(WIDE_WARPS):
+        rows, cols, _ = wide_warp_share(w)
+        own[np.ix_(rows, cols)] += 1
+    assert (own == 1).all()
+
+
+def wide_scored_pairs(kernel, Tq, S):
+    """[Tq, S] count of the times the wide kernel's warps score each
+    (query, key) pair, masked as the kernel masks (rows past the sequence,
+    keys at or past K2's kv_end)."""
+    scored = np.zeros((Tq, S), int)
+    n_own = Tq if kernel == "dq" else S  # the rows blocks own: queries (K2) or keys (K3)
+    for blk in range((n_own + WIDE_ROWS - 1) // WIDE_ROWS):
+        if kernel == "dq":
+            tiles, n_other = k2_key_tiles(blk, Tq, S, WIDE_ROWS)
+        else:
+            tiles, n_other = k3_query_tiles(blk, Tq, S, WIDE_ROWS), Tq
+        for it in tiles:
+            for w in range(WIDE_WARPS):
+                rows, _, part = wide_warp_share(w)
+                own, other = blk * WIDE_ROWS + rows, it * BK + part
+                own, other = own[own < n_own], other[other < n_other]
+                if kernel == "dq":
+                    scored[np.ix_(own, other)] += 1
+                else:
+                    scored[np.ix_(other, own)] += 1
+    return scored
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("pad", [0, 1, 31, 63, 64, 100])
+def test_wide_schedule_scores_each_visible_pair_once(kernel, pad):
+    for Tq in (1, 16, 37, 64, 100, 160, 200, 640):
+        S = Tq + pad
+        scored = wide_scored_pairs(kernel, Tq, S)
+        mask = visible(Tq, S)
+        assert (scored[mask] == 1).all(), (Tq, S)  # every visible pair, exactly once
+        assert scored.max() <= 1, (Tq, S)  # a hidden pair the kernel visits is masked, never scored twice
+
+
+def wide_emulation(q, k, v, bias, lse, delta, dout, scale):
+    """The wide kernels' arithmetic over their schedule: P and dS from bf16
+    operands in f32, rounded to bf16 as the warps swap them through shared
+    memory, then per block and streamed tile, in the kernels' order, f32
+    sums of dQ += dS·K (K2) and dV += Pᵀ·dO, dK += dSᵀ·Q (K3); outputs
+    rounded to bf16."""
+    Tq, S = q.shape[2], k.shape[2]
+    p, ds = tfa._plain_dscores(q, k, v, bias, lse, delta, dout, True, scale)
+    p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    qf, kf, dof = q.float(), k.float(), dout.float()
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(kf)
+    for blk in range((Tq + WIDE_ROWS - 1) // WIDE_ROWS):
+        rows = slice(blk * WIDE_ROWS, min((blk + 1) * WIDE_ROWS, Tq))
+        tiles, kv_end = k2_key_tiles(blk, Tq, S, WIDE_ROWS)
+        for it in tiles:
+            keys = slice(it * BK, min((it + 1) * BK, kv_end))
+            dq[:, :, rows] += ds[:, :, rows, keys] @ kf[:, :, keys]
+    for blk in range((S + WIDE_ROWS - 1) // WIDE_ROWS):
+        keys = slice(blk * WIDE_ROWS, min((blk + 1) * WIDE_ROWS, S))
+        for it in k3_query_tiles(blk, Tq, S, WIDE_ROWS):
+            qrows = slice(it * BQ, min((it + 1) * BQ, Tq))
+            dv[:, :, keys] += p[:, :, qrows, keys].transpose(2, 3) @ dof[:, :, qrows]
+            dk[:, :, keys] += ds[:, :, qrows, keys].transpose(2, 3) @ qf[:, :, qrows]
+    return tuple(t.to(torch.bfloat16) for t in (dq * scale, dk * scale, dv))
+
+
+@pytest.mark.parametrize("Tq,S", [(160, 160), (96, 160)])
+def test_wide_arithmetic_matches_jax_backward(interpret, Tq, S):
+    jgrads, args, scale = _jax_backward_case(Tq, S, 256)
+    _check_against_jax(wide_emulation(*args, scale), args, jgrads, scale)

@@ -4,10 +4,12 @@ The kernels run only on the card (tests/test_torch_kernels.py and
 chip_smoke.py hold them to their plain versions there). What is checked
 here:
 
-(a) `_variant` at GPT-J's head width: bf16 Dh = 256 takes the forward's
-    tensor cores, f32 keeps the CUDA cores, the backward keeps its
-    CUDA-core route at 256; the 16-byte alignment rule takes GPT-J's fused
-    qkv and cache views and refuses misaligned strides.
+(a) `_variant` at GPT-J's head width: bf16 Dh = 256 takes the tensor
+    cores for the forward and both backward kernels (their wide kernels),
+    f32 keeps the CUDA cores; the 16-byte alignment rule takes GPT-J's
+    fused qkv and cache views and refuses misaligned strides. (The wide
+    backward kernels' schedule and arithmetic: tests/
+    test_torch_flash_bwd_tc.py.)
 (b) The wide forward's tile schedule (`flash_fwd_tc_wide_kernel` in
     csrc/flash_fwd_tc.cu): a mirror of its index arithmetic for both block
     shapes — 64 query rows per 4-warp block for Tq > 16; one (b, h) per
@@ -46,7 +48,8 @@ DH = 256
 
 @pytest.mark.parametrize("dtype,name,want", [
     (torch.bfloat16, "flash_fwd", "tc"), (torch.float32, "flash_fwd", "simt"),
-    (torch.bfloat16, "flash_bwd_dq", "simt"), (torch.bfloat16, "flash_bwd_dkv", "simt"),
+    (torch.bfloat16, "flash_bwd_dq", "tc"), (torch.bfloat16, "flash_bwd_dkv", "tc"),
+    (torch.float32, "flash_bwd_dq", "simt"), (torch.float32, "flash_bwd_dkv", "simt"),
 ])
 def test_variant_at_gptj_head_dim(dtype, name, want):
     assert tfa._variant(dtype, DH, name) == want

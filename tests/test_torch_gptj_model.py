@@ -31,6 +31,7 @@ from lmrl_gym_torch.models import transformer as ttr
 from lmrl_gym_torch.models.convert import params_from_jax
 from lmrl_gym_torch.ops import decode_attention as tda
 from lmrl_gym_torch.ops import flash_attention as tfa
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 OP_TOL = dict(atol=2e-5, rtol=2e-5)

@@ -41,6 +41,7 @@ from lmrl_gym_torch.models.convert import head_params_from_jax, ilql_state_from_
 from lmrl_gym_torch.models.interface import LMCore as TCore
 from lmrl_gym_torch.models.transformer import Transformer
 from lmrl_gym_torch.text.tokenizer import ByteTokenizer
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 PAD = ByteTokenizer().pad_token_id
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)

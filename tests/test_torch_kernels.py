@@ -305,7 +305,7 @@ def _grad_excess(out, ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize("T", [1, 17, 160, 200])
-@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Dh", [32, 64, 128, 256])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, padded, T, Dh):
     """K2 and K3, of the variant the dispatch picks (bf16: tensor cores;
     f32: CUDA cores), against their plain versions on the same inputs."""
@@ -333,11 +333,13 @@ def _check_bwd_against_plain(B, H, Tq, S, Dh, dtype, padded, seed, tc: bool):
 @pytest.mark.parametrize(
     "B,H,Tq,S,Dh,padded",
     [(4, 3, 100, 100, 64, True), (4, 3, 37, 100, 64, False), (2, 4, 160, 160, 128, True), (3, 2, 65, 65, 16, False),
-     (2, 2, 64, 64, 32, True), (2, 2, 129, 130, 48, True)],
+     (2, 2, 64, 64, 32, True), (2, 2, 129, 130, 48, True), (2, 2, 129, 130, 144, True), (2, 3, 37, 100, 256, False),
+     (2, 2, 200, 200, 256, True)],
 )
 def test_flash_bwd_variants_match_plain(cuda, monkeypatch, variant, B, H, Tq, S, Dh, padded):
     """Each backward variant, forced, in bf16: ragged T (not a multiple of
-    the 64-row tile), right-aligned queries, Dh from 16 to 128."""
+    the 64-row tile), right-aligned queries, Dh from 16 to 256 (144: the
+    wide kernels zero-filling past Dh)."""
     monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim, name: variant)
     _check_bwd_against_plain(B, H, Tq, S, Dh, torch.bfloat16, padded, seed=Tq + Dh, tc=variant == "tc")
 
@@ -384,12 +386,13 @@ def test_flash_attention_gradients_on_card(cuda, padded):
     assert (grads[0] - grads[1]).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("Tq,S", [(10, 128), (16, 40), (100, 100), (160, 160)])
-def test_gptj_tc_forward_feeds_cuda_core_backward(cuda, Tq, S):
+@pytest.mark.parametrize("Tq,S", [(10, 128), (16, 40), (100, 100), (160, 160), (640, 640)])
+def test_gptj_tc_forward_feeds_tc_backward(cuda, Tq, S):
     """bf16 at GPT-J's Dh = 256 through autograd: K1 on the tensor cores
-    (its Tq ≤ 16 block shape and its prefill one), K2/K3 on CUDA cores,
-    left-padded rows, q/k/v as views into a fused projection. The gradients
-    match the plain backward on the forward's out and lse."""
+    (its Tq ≤ 16 block shape and its prefill one) and K2/K3 on their wide
+    tensor-core kernels, left-padded rows, q/k/v as views into a fused
+    projection, up to the BC window's T = 640. The gradients match the
+    plain backward on the forward's out and lse."""
     B, H, Dh, dtype = 4, 2, 256, torch.bfloat16
     g = torch.Generator().manual_seed(Tq + S)
     qkv = torch.randn(B, S, 3, H, Dh, generator=g).to("cuda", dtype).requires_grad_()
@@ -403,7 +406,7 @@ def test_gptj_tc_forward_feeds_cuda_core_backward(cuda, Tq, S):
     before = [(w.launches, w.tc_launches) for w in wrappers]
     out = tfa.flash_attention(q, k, v, bias)
     grads = torch.autograd.grad(out, (q, k, v), dout)
-    assert [(w.launches - n, w.tc_launches - n_tc) for w, (n, n_tc) in zip(wrappers, before)] == [(1, 1), (1, 0), (1, 0)]
+    assert [(w.launches - n, w.tc_launches - n_tc) for w, (n, n_tc) in zip(wrappers, before)] == [(1, 1)] * 3
     q, k, v = q.detach(), k.detach(), v.detach()
     out, lse = tfa.flash_fwd(q, k, v, bias)
     refs = tfa._plain_flash_backward(q, k, v, bias, out, lse, dout, True, 1.0 / Dh**0.5)

@@ -27,6 +27,7 @@ from lmrl_gym_torch.loops import online_device as tod
 from lmrl_gym_torch.models.config import tiny_test_config as ttiny
 from lmrl_gym_torch.models.interface import LMCore as TCore
 from test_torch_actor import _head, _trunk
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 B, N_TURNS = 4, 3
 

@@ -51,6 +51,7 @@ from lmrl_gym_torch.models.convert import head_params_from_jax, params_from_jax
 from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
 from lmrl_gym_torch.models.transformer import Transformer
 from lmrl_gym_torch.scripts import maze_ilql_gate as tgate
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGV = ["--hidden", "64", "--layers", "2", "--heads", "4", "--n-chains", "3", "--bc-epochs", "1", "--ilql-epochs",

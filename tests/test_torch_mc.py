@@ -31,6 +31,7 @@ from lmrl_gym_torch.models.convert import head_params_from_jax, mc_state_from_ja
 from lmrl_gym_torch.models.interface import LMCore as TCore
 from lmrl_gym_torch.models.transformer import Transformer
 from test_torch_ilql import GRAD_TOL, LOSS_TOL, PAD, STEPS, _assert_params_close, _flat, _txs
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 np_tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
 CASES = {"default": dict(), "grad_accum_2": dict(grad_accum=2), "cql_weight_0": dict(cql_weight=0.0)}

@@ -21,6 +21,7 @@ from lmrl_gym_torch.models import heads as theads
 from lmrl_gym_torch.models import transformer as ttr
 from lmrl_gym_torch.models.config import tiny_test_config as ttiny
 from lmrl_gym_torch.models.convert import head_params_from_jax, params_from_jax
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -43,6 +43,7 @@ from lmrl_gym_torch.models.config import tiny_test_config as ttiny
 from lmrl_gym_torch.models.convert import head_params_from_jax, ilql_state_from_jax, params_from_jax
 from lmrl_gym_torch.models.interface import LMCore as TCore
 from lmrl_gym_torch.models.transformer import Transformer
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 PAD = 256
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)

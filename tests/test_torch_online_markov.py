@@ -28,6 +28,7 @@ from lmrl_gym_torch.models.convert import head_params_from_jax, params_from_jax
 from lmrl_gym_torch.models.interface import LMCore as TCore
 from test_torch_markov_actor import _trunk, make_envs, markov_noise, maze_reset_draws
 from test_torch_online_device import LOSS_TOL, NOISE, PAD, _assert_params_close, _setup
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 ROLLOUT_B, TRAIN_B, N_TURNS = 4, 4, 3
 

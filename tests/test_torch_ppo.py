@@ -38,6 +38,7 @@ from lmrl_gym_torch.models.transformer import Transformer
 from lmrl_gym_torch.text.frames import TokenTrajectoryChain as TTokenChain
 from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 from test_torch_ilql import LOSS_TOL, PAD, STEPS, _assert_params_close, _flat
+from test_torch_ppo_gate_parity import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 TOK = ByteTokenizer()
 DATA_TOL = dict(atol=1e-4, rtol=1e-4)
