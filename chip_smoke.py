@@ -50,7 +50,12 @@ Phases, each of which exits non-zero on failure:
    B=1) and policies (d256 H4: 768 + 48, B=16 and the reranker's 128), 3d's
    bf16 asker and decoder oracle (B=64), K1-K3 on the f32 train windows
    (256, 512, 768, 448; B=16) and K1 on the score calls (B=128, 768 and
-   448), and the tensor-core variants at Dh 32 and 48 in bf16;
+   448), and the tensor-core variants at Dh 32 and 48 in bf16; at each f32
+   dialog shape the CUDA-core routes are timed (K1 on the prefills and
+   train windows, K4 at the middle new slot, K2 and K3 on the train
+   windows) beside their bound (bytes, or FLOPs at the card's 67 TF/s f32
+   rate outside the tensor cores), their plain versions and SDPA in f32
+   with TF32 off;
 3. serving at full width: value-guided Wordle serving with GPT-2-small
    (vocab 50,257 padded to 50,304), bf16 weights from a seed, two trunks,
    twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and two
@@ -155,6 +160,16 @@ Phases, each of which exits non-zero on failure:
 3h. the port's chess gate (`lmrl_gym_torch/scripts/chess_ilql_gate.py`)
    at its own width (d256 L4 H4, grid observations) and a cut budget:
    launch counts exactly the budget's and every rate in [0, 1];
+3q. runs that repeat (slice 14): every variant and route of K1-K4 (the
+   tensor-core, wide Dh = 256 and f32 CUDA-core K1-K3; K4's common and
+   Dh > 128 routes and f32) launched twice on the same inputs at a serving
+   and a training shape; three ILQL steps at 3t's point, 3p's first PPO
+   step and two steps of `lm_oracle.train_t5_oracle_lm` at 3d's check
+   width, each run twice from its seeds; and 3h's cut chess gate again in
+   a subprocess with another PYTHONHASHSEED. Every comparison is exact
+   (torch.equal; the gate's result JSON key for key): the port's card
+   settings (`core/device.py::resolve_device`) make a seeded run repeat
+   to the bit;
 3d. the LM-oracle dialog stack at full width, the reference's own 20Q
    configuration: a GPT-2-small asker (bf16, over the 20Q task BPE, 822
    ids padded to 896; sampled through `GenerationPolicy` over `LMServer`,
@@ -237,7 +252,9 @@ Phases, each of which exits non-zero on failure:
    `*_gptj_turn`). Every kernel with two
    variants carries the `variant` its main path runs and its `tc_launches`; and beside SDPA's backward
    (`library_ms`, which computes its own rowsum(dO ⊙ O)) the port's Δ pass
-   (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`).
+   (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`); and per kernel
+   `f32_dialog`, 2p's timings of its CUDA-core route at the f32 dialog
+   shapes.
 
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA device the
 script exits 2 and prints no result.
@@ -246,6 +263,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -291,6 +309,7 @@ from lmrl_gym_torch.algos.value_policy import (
 )
 from lmrl_gym_torch.cli.tasks import build_maze_env, generate_maze_chains
 from lmrl_gym_torch.core.blocking import BlockingStrategy, Padding, Truncation
+from lmrl_gym_torch.core.device import resolve_device
 from lmrl_gym_torch.core.optimizer import TrainState, adamw, set_to_zero, value_and_grads
 from lmrl_gym_torch.envs import lm_oracle
 from lmrl_gym_torch.envs.base import text_env_eval
@@ -520,6 +539,9 @@ def sdpa_bwd_ms(q, k, v, bias, dout, scale: float, causal_only: bool, reps: int 
 
 
 def phase_device() -> str:
+    # the port's card settings (no TF32, deterministic algorithms) for all
+    # of the script's work on the card, as every entry point sets them
+    resolve_device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -833,7 +855,7 @@ def phase_bwd_checks() -> tuple:
     return errs, gptj_rows
 
 
-def phase_path_checks() -> dict:
+def phase_path_checks() -> tuple:
     """K1 and K4 against their plain versions at the shapes the later paths
     give them, bf16 (their dtype, so the tensor-core K1): the online
     rollout (B=256, H=12) and the gate's evals (B=512, H=4) — K1 at
@@ -847,7 +869,8 @@ def phase_path_checks() -> dict:
     tokens, in bf16 and f32; the Text-Nav rollouts' (B=16, H=12 and 4),
     prompts left-padded to 640 with 36 new tokens, bf16; and K1 on the score calls' 100 proposals
     right-padded to 160 (H=12 and 4), bf16 and f32. The online, gate, PPO
-    and maze gate train steps' K1-K3 shapes are in BWD_CASES."""
+    and maze gate train steps' K1-K3 shapes are in BWD_CASES. Returns
+    ({kernel: max abs error}, the f32 dialog shapes' timings)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     dtype = torch.bfloat16
     errs = {"flash_fwd": 0.0, "decode_attn": 0.0}
@@ -893,8 +916,7 @@ def phase_path_checks() -> dict:
             log(f"check flash_fwd B=100 H={h} Tq=S={MAZE_LEN} right-padded (score call) {str(dtype)[6:]}: "
                 f"max_abs_err={err:.3e} (atol, rtol {TOL[dtype]}) lse_err={lse_err:.3e}")
     _check_markov_shapes(gen, errs)
-    _check_dialog_shapes(gen, errs)
-    return errs
+    return errs, _check_dialog_shapes(gen, errs)
 
 
 # the Markov paths' shapes (batch, heads, obs, act): the 3k rollouts (maze,
@@ -1866,6 +1888,7 @@ def phase_ppo(device="cuda", config=None) -> dict:
     check(n >= 4 * TRAIN_B, f"PPO data: {n} windows, want at least {4 * TRAIN_B}")
     out = _path_counts("ppo_rollout_turn", turns[0]["counts"])
     out.update(_path_counts("ppo_forward", fwd_calls[0]["counts"]))
+    first_batch = None
     for j, bc_weight in enumerate((0.0, 0.5)):
         step = make_ppo_train_step(core, PPOConfig(gamma=0.99, lam=0.95, bc_loss_weight=bc_weight), pad)
         for i in range(2):
@@ -1877,6 +1900,8 @@ def phase_ppo(device="cuda", config=None) -> dict:
                 bc = dict(bc_input_ids=t["input_ids"].long(), bc_training_mask=mask.float())
             batch = PPOBatch(t["input_ids"].long(), t["should_take_action"], t["old_logprobs"], t["old_values"],
                              t["old_advantages"], t["old_returns"], **bc)
+            if first_batch is None:  # 3q runs the first step again
+                first_batch = batch
             (state, loss, logs), counts, s = _counted(step, state, batch, device=device)
             want = _want(L, fwd=2, bwd=2) if bc_weight else _want(L, fwd=1, bwd=1)
             check(counts == want, f"PPO step bc={bc_weight} {i}: {_fmt_counts(counts)}, want {want}")
@@ -1889,7 +1914,7 @@ def phase_ppo(device="cuda", config=None) -> dict:
             profile_run(f"PPO step bc_weight={bc_weight}", lambda: step(state, batch), s)
     check(not torch.equal(w0[0], policy.ln_f.weight) and not torch.equal(w0[1], value_head.dense.weight),
           "PPO steps: the policy or the value head did not move")
-    return {**out, "policy": policy, "config": config}
+    return {**out, "policy": policy, "config": config, "batch": first_batch}
 
 
 def phase_rerank(policy, config, device="cuda") -> dict:
@@ -2522,7 +2547,7 @@ def phase_chess_gate(device="cuda", extra=()) -> dict:
     log(f"chess gate (3h) ({' '.join(CHESS_GATE_ARGS + list(extra))}): {s:.1f} s, {score_calls} score calls over "
         f"{n_moves} candidates, {_fmt_counts(counts)}; result {result}")
     out = _path_counts("chess_gate", counts)
-    out["chess_gate_s"] = s
+    out.update(chess_gate_s=s, chess_gate_result=result)
     return out
 
 
@@ -2599,11 +2624,73 @@ def _dialog_cache(b, h, dh, t_max, prompt, dtype, gen):
     return q, k, v, bias
 
 
-def _check_dialog_shapes(gen, errs: dict) -> None:
+F32_REPS = 10  # timed launches per f32 dialog shape
+
+
+def _f32_row(kernel: str, shape: str, ms: float, bound: tuple, plain_ms: float, library_ms: float) -> dict:
+    row = dict(kernel=kernel, shape=shape, ms=ms, bound_ms=bound[0], bound_by=bound[1], plain_ms=plain_ms,
+               library_ms=library_ms)
+    log(f"time f32 {kernel} dialog {shape}: kernel_ms={ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}; f32 peak "
+        f"{PEAK_FLOPS[torch.float32] / 1e12:.0f} TF/s outside the tensor cores) plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} (SDPA, f32, TF32 off)")
+    return row
+
+
+def _time_f32_serving(name, q, k, v, bias, prompt: int, index: int) -> list:
+    """The CUDA-core K1 on a dialog prefill and K4 at one decode slot, f32:
+    kernel, bound (bytes with the bias), plain and SDPA ms."""
+    dtype, (b, h, _, dh) = torch.float32, q.shape
+    scale, sdpa = dh**-0.5, torch.nn.functional.scaled_dot_product_attention
+    kp, vp, bp = k[:, :, :prompt], v[:, :, :prompt], bias[:, :prompt]
+    mask = sdpa_mask(bp, prompt, prompt, b)
+    n_bytes, flops = flash_work(b, h, dh, prompt, prompt, dtype)
+    rows = [_f32_row("flash_fwd", f"{name} B={b} H={h} Dh={dh} prefill {prompt}",
+                     cuda_ms(lambda: flash_fwd(q, kp, vp, bp, True, scale), F32_REPS),
+                     bound_ms(n_bytes + 4 * b * prompt, flops, dtype),
+                     cuda_ms(lambda: _plain_attention(q, kp, vp, bp, True, scale), F32_REPS),
+                     cuda_ms(lambda: sdpa(q, kp, vp, attn_mask=mask, scale=scale), F32_REPS))]
+    q1 = q[:, :, -1:].contiguous()
+    n = index + 1
+    kn, vn, dmask = k[:, :, :n], v[:, :, :n], (bias[:, :n] == 0)[:, None, None, :]
+    n_bytes, flops = decode_work(b, h, dh, n, dtype)
+    rows.append(_f32_row("decode_attn", f"{name} B={b} H={h} Dh={dh} index {index}",
+                         cuda_ms(lambda: decode_attention(q1, k, v, index, bias, scale), F32_REPS),
+                         bound_ms(n_bytes + 4 * b * n, flops, dtype),
+                         cuda_ms(lambda: _plain_decode_attention(q1, k, v, index, bias, scale), F32_REPS),
+                         cuda_ms(lambda: sdpa(q1, kn, vn, attn_mask=dmask, scale=scale), F32_REPS)))
+    return rows
+
+
+def _time_f32_train(name, args) -> list:
+    """The CUDA-core K1-K3 on a right-padded f32 dialog train window:
+    kernel, bound, plain ms; SDPA's forward, and its backward for the pair."""
+    q, k, v, bias, lse, delta, dout = args
+    dtype, (b, h, T, dh) = torch.float32, q.shape
+    scale, sdpa = dh**-0.5, torch.nn.functional.scaled_dot_product_attention
+    shape = f"{name} B={b} H={h} Dh={dh} T={T}"
+    mask = sdpa_mask(bias, T, T, b)
+    n_bytes, flops = flash_work(b, h, dh, T, T, dtype)
+    rows = [_f32_row("flash_fwd", shape, cuda_ms(lambda: flash_fwd(q, k, v, bias, True, scale), F32_REPS),
+                     bound_ms(n_bytes + 4 * b * T, flops, dtype),
+                     cuda_ms(lambda: _plain_attention(q, k, v, bias, True, scale), F32_REPS),
+                     cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale), F32_REPS))]
+    library = sdpa_bwd_ms(q, k, v, bias, dout, scale, causal_only=False, reps=F32_REPS)
+    for kernel, kind, fn, plain in (("flash_bwd_dq", "dq", flash_bwd_dq, _plain_bwd_dq),
+                                    ("flash_bwd_dkv", "dkv", flash_bwd_dkv, _plain_bwd_dkv)):
+        rows.append(_f32_row(kernel, shape, cuda_ms(lambda: fn(*args, True, scale), F32_REPS),
+                             bound_ms(*bwd_work(b, h, dh, T, T, dtype, kind, True), dtype),
+                             cuda_ms(lambda: plain(*args, True, scale), F32_REPS), library))
+    return rows
+
+
+def _check_dialog_shapes(gen, errs: dict) -> list:
     """K1-K4 against their plain versions at the dialog paths' shapes
     (DIALOG_SERVE_SHAPES, DIALOG_TRAIN_SHAPES), in the dtypes the paths run:
     the gates' f32 (CUDA-core K1-K3) at Dh 32, 48 and 64, caches of 264,
-    816 and 832 slots, 768-token prefills and train windows; 3d's bf16."""
+    816 and 832 slots, 768-token prefills and train windows; 3d's bf16.
+    Returns the f32 shapes' timings (kernel, bound, plain and SDPA ms per
+    launch; `_time_f32_serving`, `_time_f32_train`)."""
+    f32_rows = []
     for name, dtype, b, h, dh, prompt, new in DIALOG_SERVE_SHAPES:
         W = prompt + new
         q, k, v, bias = _dialog_cache(b, h, dh, W, prompt, dtype, gen)
@@ -2619,6 +2706,8 @@ def _check_dialog_shapes(gen, errs: dict) -> None:
         log(f"check dialog {name} B={b} H={h} Dh={dh} {str(dtype)[6:]}: flash_fwd prefill {prompt} (view of a {W} "
             f"cache, left-padded) max_abs_err={err:.3e} lse_err={lse_err:.3e}; decode_attn index {prompt}, "
             f"{prompt + new // 2}, {W - 1} max_abs_err={dec_err:.3e}")
+        if dtype == torch.float32:
+            f32_rows += _time_f32_serving(name, q, k, v, bias, prompt, prompt + new // 2)
     for name, dtype, b, h, dh, T, backward in DIALOG_TRAIN_SHAPES:
         args, rows, _ = _bwd_inputs(T, T, dtype, "right", gen, b, h, dh)
         fwd_err, _ = _check_fwd(*args[:4], rows, dtype, f"dialog {name} B={b} Dh={dh} T={T}")
@@ -2643,6 +2732,9 @@ def _check_dialog_shapes(gen, errs: dict) -> None:
                 line.append(f"{g_name}_max_abs_err={err:.3e}")
         log(f"check dialog {name} B={b} H={h} Dh={dh} T={T} right-padded {str(dtype)[6:]}: " + " ".join(line)
             + f" (atol, rtol {TOL[dtype]} / {GRAD_TOL[dtype]})")
+        if dtype == torch.float32 and backward:
+            f32_rows += _time_f32_train(name, args)
+    return f32_rows
 
 
 def dialog_tokenizer():
@@ -3707,6 +3799,170 @@ def phase_gptj_train() -> dict:
     return out
 
 
+
+# ---------------- slice 14: runs that repeat ----------------
+
+# 3q's kernel reruns: every variant and route of K1-K4 launched twice on the
+# same inputs, at a serving shape and a training shape each (K2 and K3 run
+# only in training: two training shapes). K1 (label, dtype, b, h, dh, Tq, S,
+# left-padded): the Wordle rollout's appends and the ILQL step's windows on
+# the tensor cores, GPT-J's rollout appends and ILQL windows on the wide
+# kernel, the f32 dialog gates' policy prefill and 20Q windows on the CUDA
+# cores
+RERUN_FWD_CASES = (
+    ("tc serving", torch.bfloat16, B, H, DH, 10, T_MAX, False),
+    ("tc training", torch.bfloat16, TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
+    ("wide serving", torch.bfloat16, GPTJ_B, GPTJ_H, GPTJ_DH, 10, T_MAX, False),
+    ("wide training", torch.bfloat16, TRAIN_B, GPTJ_H, GPTJ_DH, TRAIN_T, TRAIN_T, False),
+    ("simt serving", torch.float32, 16, 4, 64, DIALOG_MAX_LEN, DIALOG_MAX_LEN, True),
+    ("simt training", torch.float32, TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
+)
+# K2 and K3 (label, dtype, b, h, dh, Tq, S, padding): the ILQL step and the
+# Text-Nav PPO windows on the tensor cores, GPT-J's ILQL step and BC window
+# on the wide kernels, the f32 card step's point and the 20Q policy's windows
+# on the CUDA cores
+RERUN_BWD_CASES = (
+    ("tc", torch.bfloat16, TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
+    ("tc", torch.bfloat16, TRAIN_B, H, DH, TN_LEN, TN_LEN, "right"),
+    ("wide", torch.bfloat16, TRAIN_B, GPTJ_H, GPTJ_DH, TRAIN_T, TRAIN_T, False),
+    ("wide", torch.bfloat16, GPTJ_BC_B, GPTJ_H, GPTJ_DH, TN_LEN, TN_LEN, True),
+    ("simt", torch.float32, TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
+    ("simt", torch.float32, 16, 4, 64, DIALOG_MAX_LEN, DIALOG_MAX_LEN, "right"),
+)
+# K4 (label, dtype, b, h, dh, cache slots, index): the Wordle rollout; GPT-J's
+# rollout (B·H = 4,096: the common route) and Text-Nav turn (B·H = 256: the
+# Dh > 128 route); the f32 decoder oracle's fidelity probe
+RERUN_DECODE_CASES = (
+    ("serving", torch.bfloat16, B, H, DH, T_MAX, 67),
+    ("Dh 256, common route", torch.bfloat16, GPTJ_B, GPTJ_H, GPTJ_DH, T_MAX, 100),
+    ("Dh 256, own route", torch.bfloat16, GPTJ_TURN_B, GPTJ_H, GPTJ_DH, TN_LEN + TN_NEW, TN_LEN + TN_NEW - 1),
+    ("f32", torch.float32, 100, 4, 32, ORACLE_INPUT + ORACLE_NEW, ORACLE_INPUT + ORACLE_NEW - 1),
+)
+RERUN_ILQL_STEPS = 3  # 3q: ILQL steps at 3t's point from one seed, run twice
+RERUN_T5_WINDOWS = 32  # 3q: two B=16 steps of the T5 oracle trainer
+
+
+def _same(label: str, first: list, second: list) -> None:
+    """Two runs' tensors equal to the bit (torch.equal, no tolerance)."""
+    check(len(first) == len(second), f"rerun {label}: {len(first)} against {len(second)} tensors")
+    for i, (a, b) in enumerate(zip(first, second)):
+        if not torch.equal(a, b):
+            d = (a.float() - b.float()).abs().max().item() if a.shape == b.shape else f"shapes {a.shape}, {b.shape}"
+            raise SmokeFailure(f"rerun {label}: tensor {i} of {len(first)} differs between two runs (max |diff| {d})")
+
+
+def _state_tensors(state) -> list:
+    """Copies of every parameter of a train state's modules (trained and
+    target), in field order."""
+    out = []
+    for f in dataclasses.fields(state):
+        x = getattr(state, f.name)
+        module = x.params if isinstance(x, TrainState) else x
+        if isinstance(module, torch.nn.Module):
+            out += [p.detach().clone() for p in module.parameters()]
+    return out
+
+
+def _rerun_kernels() -> int:
+    """Each kernel variant and route launched twice on the same inputs;
+    returns the number of (case, launch pair)s held equal."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n = 0
+    for label, dtype, b, h, dh, Tq, S, padded in RERUN_FWD_CASES:
+        q, k, v, bias = _flash_inputs(Tq, S, dtype, padded, gen, b=b, h=h, dh=dh)
+        tc0 = flash_fwd.tc_launches
+        runs = [list(flash_fwd(q, k, v, bias, True, dh**-0.5)) for _ in range(2)]
+        check((flash_fwd.tc_launches - tc0 == 2) == (label.split()[0] != "simt"),
+              f"rerun flash_fwd {label}: {flash_fwd.tc_launches - tc0} tensor-core launches of 2")
+        _same(f"flash_fwd {label} B={b} H={h} Dh={dh} Tq={Tq} S={S}", *runs)
+        n += 1
+    for label, dtype, b, h, dh, Tq, S, padded in RERUN_BWD_CASES:
+        args, _, _ = _bwd_inputs(Tq, S, dtype, padded, gen, b, h, dh)
+        tc0 = _tc_counts()
+        runs = [[flash_bwd_dq(*args, True, dh**-0.5), *flash_bwd_dkv(*args, True, dh**-0.5)] for _ in range(2)]
+        want_tc = (2, 2) if label != "simt" else (0, 0)
+        check(tuple(x - y for x, y in zip(_tc_counts(), tc0)) == want_tc, f"rerun flash_bwd {label}: tensor-core launches")
+        _same(f"flash_bwd_dq/dkv {label} B={b} H={h} Dh={dh} T={Tq} padding={padded}", *runs)
+        n += 1
+    for label, dtype, b, h, dh, t_max, index in RERUN_DECODE_CASES:
+        q, k, v, bias = _decode_inputs(index, dtype, True, gen, b=b, h=h, t_max=t_max, dh=dh)
+        _same(f"decode_attn {label} B={b} H={h} Dh={dh} index={index}",
+              *([decode_attention(q, k, v, index, bias, dh**-0.5)] for _ in range(2)))
+        n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def _rerun_ilql(config, device="cuda") -> list:
+    """RERUN_ILQL_STEPS ILQL steps at 3t's point (seeded modules, bench.py's
+    batch): the losses, then every parameter of the state."""
+    modules = _train_modules(config, device)
+    state = init_ilql_state(*modules, adamw(1e-4), adamw(1e-3), ILQLConfig())
+    step = make_ilql_train_step(LMCore(config, device=device), ILQLConfig(), PAD_ID)
+    batch = _train_batch(device)
+    losses = []
+    for _ in range(RERUN_ILQL_STEPS):
+        state, loss, _ = step(state, batch)
+        losses.append(loss.reshape(1))
+    return [torch.cat(losses)] + _state_tensors(state)
+
+
+def _rerun_ppo(config, batch, device="cuda") -> list:
+    """3p's first PPO step (no BC term) from 3p's seeded policy and value
+    head, on 3p's first batch: the loss, then every parameter."""
+    policy = init_params(config, seed=20, device=device)
+    value_head = LinearHead(LinearHeadConfig(config.hidden_size, 1), device=device, seed=21)
+    state = PPOTrainState(TrainState(policy, adamw(1e-5)), TrainState(value_head, adamw(1e-4)))
+    step = make_ppo_train_step(LMCore(config, device=device), PPOConfig(gamma=0.99, lam=0.95, bc_loss_weight=0.0),
+                               ByteTokenizer().pad_token_id)
+    state, loss, _ = step(state, batch)
+    return [loss.reshape(1)] + _state_tensors(state)
+
+
+def _rerun_t5(device="cuda") -> list:
+    """Two B=16 steps of `lm_oracle.train_t5_oracle_lm` at 3d's check width
+    (d2048, 32 heads, 2 + 2 layers) over the 20Q task BPE: every parameter."""
+    windows = lm_oracle.COLLECTORS["twenty_questions"](8, 0)[:RERUN_T5_WINDOWS]
+    check(len(windows) == RERUN_T5_WINDOWS, f"rerun T5: {len(windows)} oracle windows")
+    cfg = lm_oracle.OracleTrainConfig(epochs=1, train_bsize=16, hidden_size=flan_t5_xl().d_model,
+                                      num_layers=2 * T5_CHECK_LAYERS, num_heads=flan_t5_xl().num_heads)
+    _, _, params, _ = lm_oracle.train_t5_oracle_lm(windows, cfg, tokenizer=dialog_tokenizer(), log=lambda _: None,
+                                                   device=device)
+    return [p.detach().clone() for p in params.parameters()]
+
+
+def phase_rerun(config, ppo_config, ppo_batch, chess_result: dict) -> None:
+    """Phase 3q: a seeded run gives the same bits twice. Every kernel
+    variant and route launched twice on the same inputs; 3t's ILQL steps,
+    3p's first PPO step and two T5 oracle-trainer steps each run twice from
+    their seeds; and 3h's cut chess gate run again in a subprocess whose
+    PYTHONHASHSEED differs from this process's, its result JSON held to
+    3h's key for key. Every comparison is exact."""
+    t0 = time.perf_counter()
+    n = _rerun_kernels()
+    log(f"rerun kernels (3q): {n} cases, each two launches bitwise equal, {time.perf_counter() - t0:.2f} s")
+    for name, run in (("ILQL", lambda: _rerun_ilql(config)), ("PPO", lambda: _rerun_ppo(ppo_config, ppo_batch)),
+                      ("T5 oracle", _rerun_t5)):
+        t0 = time.perf_counter()
+        first = run()
+        second = run()
+        torch.cuda.synchronize()
+        _same(name, first, second)
+        log(f"rerun {name} (3q): {len(first)} tensors bitwise equal over two runs, {time.perf_counter() - t0:.1f} s")
+        del first, second
+        torch.cuda.empty_cache()
+    hash_seed = str(int(os.environ.get("PYTHONHASHSEED", "0")) + 1)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lmrl_gym_torch.scripts.chess_ilql_gate", *CHESS_GATE_ARGS],
+                          env=dict(os.environ, PYTHONHASHSEED=hash_seed), capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"rerun chess gate: the subprocess exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    again = json.loads(lines[-1])
+    check(again == chess_result, f"rerun chess gate (PYTHONHASHSEED={hash_seed}): {again} against 3h's {chess_result}")
+    log(f"rerun chess gate (3q): a subprocess at PYTHONHASHSEED={hash_seed} gave 3h's result key for key "
+        f"({len(again)} keys), {time.perf_counter() - t0:.1f} s ({lines[-2]}; the rest its start-up)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
@@ -3722,7 +3978,7 @@ def main() -> int:
         bwd_errs, gptj_bwd = phase_bwd_checks()
         log(f"phase_bwd_checks: {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
-        path_errs = phase_path_checks()
+        path_errs, dialog_f32 = phase_path_checks()
         log(f"phase_path_checks: {time.perf_counter() - t1:.1f} s")
         for name, err in list(bwd_errs.items()) + list(path_errs.items()):
             errs[name] = max(errs.get(name, 0.0), err)
@@ -3749,7 +4005,8 @@ def main() -> int:
         launches.update(phase_mc(launches["config"]))
         launches.update(phase_cql(launches["config"]))
         ppo = phase_ppo()
-        launches.update(phase_rerank(ppo.pop("policy"), ppo.pop("config")))
+        ppo_batch, ppo_config = ppo.pop("batch"), ppo.pop("config")
+        launches.update(phase_rerank(ppo.pop("policy"), ppo_config))
         launches.update(ppo)
         launches.update(phase_maze_gate())
         log(f"phases 3m, 3c, 3p, 3r, 3z: {time.perf_counter() - t_slice6:.1f} s")
@@ -3764,6 +4021,9 @@ def main() -> int:
             launches.update(phase())
             log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         log(f"phases 3k, 3u, 3h: {time.perf_counter() - t_slice8:.1f} s")
+        t0 = time.perf_counter()
+        phase_rerun(launches["config"], ppo_config, ppo_batch, launches.pop("chess_gate_result"))
+        log(f"phase 3q: {time.perf_counter() - t0:.1f} s")
         t_slice9 = time.perf_counter()
         for name, phase in (("3d", phase_dialog), ("3e", phase_dialog_gates)):
             t0 = time.perf_counter()
@@ -3856,6 +4116,10 @@ def main() -> int:
             entry.update({f"ms_{path}": row[f"{kind}_ms"], f"plain_ms_{path}": row[f"plain_{kind}_ms"],
                           f"bound_ms_{path}": row[f"bound_{kind}_ms"], f"bound_by_{path}": row[f"bound_{kind}_by"],
                           f"library_ms_{path}": row["library_bwd_ms"], f"simt_ms_{path}": row[f"simt_{kind}_ms"]})
+    # every f32 dialog-gate launch takes the CUDA-core variants (2p's f32 timings)
+    for entry in kernels:
+        entry["f32_dialog"] = [{k: v for k, v in row.items() if k != "kernel"}
+                               for row in dialog_f32 if row["kernel"] == entry["name"]]
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

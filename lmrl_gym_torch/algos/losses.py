@@ -35,17 +35,16 @@ def softmax_cross_entropy_with_integer_labels(logits: torch.Tensor, labels: torc
 def select_at_mask(values_flat: torch.Tensor, mask_flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather `values_flat` at True positions of `mask_flat`, in order,
     zero-padded to full length → (selected [N], sel_mask [N]): the JAX
-    package's `argwhere(size=N, fill_value=N)` + fill-gather. Each selected
-    element's rank is cumsum(mask) − 1; a scatter into an N+1 buffer sends
-    the unselected ones to the spare slot."""
+    package's `argwhere(size=N, fill_value=N)` + fill-gather. A stable sort
+    of the unselected flag puts the selected positions first, in order: a
+    permutation, so no two elements meet in one slot (a scatter of the
+    unselected ones into one spare slot costs a serial pass over them under
+    CUDA's deterministic algorithms)."""
     N = mask_flat.shape[0]
     mask = mask_flat.bool()
-    rank = torch.cumsum(mask.long(), 0) - 1
-    dest = torch.where(mask, rank, N)
-    selected = torch.zeros(N + 1, dtype=values_flat.dtype, device=values_flat.device)
-    selected = selected.scatter(0, dest, values_flat)[:N]
-    sel_mask = (torch.arange(N, device=mask.device) < mask.sum()).to(values_flat.dtype)
-    return selected * sel_mask, sel_mask
+    order = torch.argsort((~mask).to(torch.int32), stable=True)
+    sel = torch.arange(N, device=mask.device) < mask.sum()
+    return torch.where(sel, values_flat[order], 0), sel.to(values_flat.dtype)
 
 
 def next_state_mask(should_take_action: torch.Tensor) -> torch.Tensor:

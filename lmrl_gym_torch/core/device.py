@@ -16,7 +16,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     `None` means `cuda`. Asking for CUDA where there is none raises: the
     port never carries on quietly on the CPU. On CUDA, float32 matrix
     products are pinned to full float32 (no TF32), so the port's f32
-    results are comparable with the reference's."""
+    results are comparable with the reference's, and a seeded run repeats
+    to the bit, as XLA's does. The CPU's settings are left as they are."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -26,6 +27,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # every CUDA op from here on gives the same bits for the same
+        # inputs: PyTorch's deterministic algorithms (an op that has none
+        # raises, and is never caught; cuBLAS repeats on PyTorch's
+        # per-stream workspaces, and a CUBLAS_WORKSPACE_CONFIG in the
+        # environment only makes each GEMM call slower on the host).
+        # Uninitialized memory is not filled: every kernel and KV cache
+        # writes what its readers read, and GPT-J's caches are 12 GB
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
     return dev
 
 

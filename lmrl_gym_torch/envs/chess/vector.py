@@ -324,10 +324,12 @@ class ChessEndgameVectorEnv:
 
     def _fen_chars(self, state: ChessVecState) -> Tuple[torch.Tensor, torch.Tensor]:
         """([B, FEN_MAX] char codes, [B] length): the run-length-encoded
-        board and the ' w - - H F' suffix, put together by one compaction
-        scatter. Every dropped character goes to the spare slot
-        FEN_MAX + 7, which is sliced off (as the JAX package's drop-mode
-        scatter writes it), so duplicate writes land only there."""
+        board and the ' w - - H F' suffix, put together by one compaction:
+        a stable sort of each row's dropped flag puts the kept characters
+        first, in order, and the tail past the length is padding. (The JAX
+        package scatters the dropped ones into a spare slot; a sort is a
+        permutation, with no duplicate writes for CUDA's deterministic
+        scatter to walk serially.)"""
         B, dev = state.wk.shape[0], self.device
         sq = torch.arange(64, device=dev)[None, :]
         board = torch.zeros((B, 64), dtype=torch.int64, device=dev)
@@ -378,11 +380,10 @@ class ChessEndgameVectorEnv:
 
         chars = torch.cat([slot_chars.reshape(B, -1), suf_chars], dim=1)
         valid = torch.cat([slot_valid.reshape(B, -1), suf_valid], dim=1)
-        pos = torch.cumsum(valid.long(), dim=1) - 1
-        pos = torch.where(valid, pos, FEN_MAX + 7)  # the spare slot
-        out = torch.full((B, FEN_MAX + 8), _SP, dtype=torch.int64, device=dev)
-        out.scatter_(1, pos, chars)
-        return out[:, :FEN_MAX], valid.sum(dim=1).to(torch.int32)
+        order = torch.argsort((~valid).to(torch.int32), dim=1, stable=True)[:, :FEN_MAX]
+        length = valid.sum(dim=1)
+        kept = torch.arange(FEN_MAX, device=dev)[None, :] < length[:, None]
+        return torch.where(kept, torch.gather(chars, 1, order), _SP), length.to(torch.int32)
 
     # ------------------------------------------------- helper policies
 

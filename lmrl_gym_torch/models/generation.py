@@ -24,6 +24,8 @@ import torch
 from lmrl_gym_torch.core.device import inference
 from lmrl_gym_torch.core.random import categorical
 
+_TOP_P_UNITS = 2.0**40  # top-p's fixed point: V probabilities sum below 2^63
+
 
 @dataclass(frozen=True)
 class SamplingConfig:
@@ -52,9 +54,12 @@ def sample_token(
     if config.top_p is not None:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
         probs = torch.softmax(sorted_logits, dim=-1)
-        cum = torch.cumsum(probs, dim=-1)
+        # the cumulative probability in fixed point (units of 2^-40): an
+        # integer scan gives the same sums in any order of addition, so
+        # every run, batch size and scan algorithm agrees to the bit
+        cum = torch.cumsum(torch.round(probs * _TOP_P_UNITS).long(), dim=-1)
         # keep smallest set with cumulative prob >= top_p (always keep top-1)
-        cutoff_idx = (cum < config.top_p).sum(dim=-1)
+        cutoff_idx = (cum < round(config.top_p * _TOP_P_UNITS)).sum(dim=-1)
         cutoff = torch.gather(sorted_logits, -1, cutoff_idx[:, None])
         logits = torch.where(logits < cutoff, -torch.inf, logits)
     return categorical(logits, generator, gumbel)
