@@ -55,7 +55,17 @@ Phases, each of which exits non-zero on failure:
    train windows, K4 at the middle new slot, K2 and K3 on the train
    windows) beside their bound (bytes, or FLOPs at the card's 67 TF/s f32
    rate outside the tensor cores), their plain versions and SDPA in f32
-   with TF32 off;
+   with TF32 off; every K4 check also holds the route: the split route
+   exactly where `_decode_splits` asks for one;
+2s. K4's split route (Dh <= 128 below two blocks per SM: the keys cut into
+   splits merged in one launch; `phase_split_checks`) against its plain
+   version in f32 and bf16 at Dh 32, 48, 64 and 128, B x H from 1 to one
+   below the threshold, indices 127, 128, 300 and 791 (across split
+   boundaries) and left padding longer than a split, every launch on the
+   split route; then its times (kernel, plain, SDPA, the bound) at a
+   served Text-Nav turn (GPT-2-small, B=16, bf16, fills 640..675) and a
+   text-env turn's decode (B=8, fills 128..137); 2j also times K1 at
+   3jt's ILQL-step windows (B=32, T=160, Dh=256) beside its bound and SDPA;
 3. serving at full width: value-guided Wordle serving with GPT-2-small
    (vocab 50,257 padded to 50,304), bf16 weights from a seed, two trunks,
    twin MLP Q heads, beta=32, constrained vocab, B=512 — one warm-up and two
@@ -161,9 +171,10 @@ Phases, each of which exits non-zero on failure:
    at its own width (d256 L4 H4, grid observations) and a cut budget:
    launch counts exactly the budget's and every rate in [0, 1];
 3q. runs that repeat (slice 14): every variant and route of K1-K4 (the
-   tensor-core, wide Dh = 256 and f32 CUDA-core K1-K3; K4's common and
-   Dh > 128 routes and f32) launched twice on the same inputs at a serving
-   and a training shape; three ILQL steps at 3t's point, 3p's first PPO
+   tensor-core, wide Dh = 256 and f32 CUDA-core K1-K3, the f32 K1 at the
+   dialog policy's and oracle's prefills; K4's common, Dh > 128 and split
+   routes and f32) launched twice on the same inputs at a serving and a
+   training shape; three ILQL steps at 3t's point, 3p's first PPO
    step and two steps of `lm_oracle.train_t5_oracle_lm` at 3d's check
    width, each run twice from its seeds; and 3h's cut chess gate again in
    a subprocess with another PYTHONHASHSEED. Every comparison is exact
@@ -254,7 +265,12 @@ Phases, each of which exits non-zero on failure:
    (`library_ms`, which computes its own rowsum(dO ⊙ O)) the port's Δ pass
    (`delta_ms`) and the pair plus Δ (`pair_plus_delta_ms`); and per kernel
    `f32_dialog`, 2p's timings of its CUDA-core route at the f32 dialog
-   shapes.
+   shapes, and `f32_dialog_loss_ms`, the cut dialog gates' launches times
+   the mean (kernel − bound) ms over those shapes (the ranking a kernel
+   redesign is chosen by); for decode_attn `split_launches` (the serving
+   rollout's: none), `split_launches_<path>` on each later path and their
+   sum, and 2s's rows under `*_text_nav_turn` and `*_text_env_turn`; for
+   flash_fwd 2j's row at 3jt's ILQL step under `*_gptj_train_step`.
 
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA device the
 script exits 2 and prints no result.
@@ -342,7 +358,7 @@ from lmrl_gym_torch.models.interface import LMCore
 from lmrl_gym_torch.models.transformer import Transformer, init_params
 from lmrl_gym_torch.ops import _build
 from lmrl_gym_torch.ops import flash_attention as flash_module
-from lmrl_gym_torch.ops.decode_attention import _plain_decode_attention, decode_attention
+from lmrl_gym_torch.ops.decode_attention import _decode_splits, _device_sms, _plain_decode_attention, decode_attention
 from lmrl_gym_torch.ops.flash_attention import (
     _NEG_BIG,
     _delta,
@@ -601,14 +617,20 @@ def _decode_inputs(index, dtype, padded, gen, b=B, h=H, t_max=T_MAX, max_pad=Non
 
 
 def _check_decode(q, k, v, index, bias, dtype, label: str) -> float:
-    """decode_attention against _plain_decode_attention within TOL; returns
-    the max abs error."""
+    """decode_attention against _plain_decode_attention within TOL, on the
+    route `_decode_splits` picks (the split route below two blocks per SM
+    with 128 keys or more at Dh <= 128); returns the max abs error."""
     scale = 1.0 / q.shape[-1]**0.5
+    split0 = decode_attention.split_launches
     out = decode_attention(q, k, v, index, bias, scale)
+    n_split = decode_attention.split_launches - split0
     ref = _plain_decode_attention(q, k, v, index, bias, scale)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     check(excess(out, ref, dtype).max().item() <= TOL[dtype][0], f"decode_attn {label} {dtype}: max abs err {err}")
+    b, h, _, dh = q.shape
+    want = int(_decode_splits(b, h, dh, index + 1, _device_sms(q.device)) > 1)
+    check(n_split == want, f"decode_attn {label} {dtype}: {n_split} split-route launches, want {want}")
     return err
 
 
@@ -1084,7 +1106,7 @@ def phase_main_path_shapes() -> dict:
 
 def _reset_counts():
     flash_fwd.launches = flash_fwd.tc_launches = 0
-    decode_attention.launches = 0
+    decode_attention.launches = decode_attention.split_launches = 0
     flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
     flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
 
@@ -1101,11 +1123,22 @@ COUNT_NAMES = ("flash_fwd", "flash_fwd_tc", "decode_attn", "flash_bwd_dq", "flas
                "flash_bwd_dkv_tc")
 
 
+class _Counts(tuple):
+    """Launch counts in COUNT_NAMES' order, equal to the plain tuple of
+    them; `split` is K4's launches on its split route, a route taken inside
+    those launches and not a launch count of its own, so the exact-launch
+    gates do not read it."""
+    split = 0
+
+
 def _all_counts() -> tuple:
     """Every launch counter, in COUNT_NAMES' order (K1 and its tensor-core
-    share, K4, K2 and its share, K3 and its share)."""
-    return (flash_fwd.launches, flash_fwd.tc_launches, decode_attention.launches, flash_bwd_dq.launches,
-            flash_bwd_dq.tc_launches, flash_bwd_dkv.launches, flash_bwd_dkv.tc_launches)
+    share, K4, K2 and its share, K3 and its share), with K4's split-route
+    share as `split`."""
+    counts = _Counts((flash_fwd.launches, flash_fwd.tc_launches, decode_attention.launches, flash_bwd_dq.launches,
+                      flash_bwd_dq.tc_launches, flash_bwd_dkv.launches, flash_bwd_dkv.tc_launches))
+    counts.split = decode_attention.split_launches
+    return counts
 
 
 def _fmt_counts(counts: tuple) -> str:
@@ -1242,6 +1275,8 @@ def phase_slice() -> dict:
         check(n_flash == 7 * config.num_layers * 2, f"flash_fwd launched {n_flash} times, want 168")
         check(n_decode == 60 * config.num_layers * 2, f"decode_attn launched {n_decode} times, want 1440")
         check(flash_fwd.tc_launches == n_flash, f"flash_fwd: {flash_fwd.tc_launches} of {n_flash} launches on the tensor cores")
+        # B x H = 6,144 blocks: the one-block route, the bits of the parent
+        check(decode_attention.split_launches == 0, f"decode_attn: {decode_attention.split_launches} split-route launches")
         _check_rollout(out, env)
         rollout_tc = flash_fwd.tc_launches
         ret = (out.turn_reward * out.turn_live).sum(1).mean().item()
@@ -1278,7 +1313,7 @@ def phase_slice() -> dict:
     for p, a in zip(prompts, answers):
         log(f"  prompt {p!r} -> {a!r}")
     return {"flash_fwd": 7 * config.num_layers * 2, "flash_fwd_tc": rollout_tc, "decode_attn": 60 * config.num_layers * 2,
-            "base": base, "config": config, "serving": ValueRLParams(pi_beta, base, q1, q2, None)}
+            "decode_attn_split": 0, "base": base, "config": config, "serving": ValueRLParams(pi_beta, base, q1, q2, None)}
 
 
 @contextlib.contextmanager
@@ -1467,6 +1502,7 @@ def phase_text_env(serving: ValueRLParams, config) -> dict:
         f"max {summary['reward']['max']:.1f}, length mean {summary['length']['mean']:.2f}")
     log(f"  game 0: {' | '.join(tr.post_action_history[-1].text.strip() for tr in interactions[0])}")
     per_turn = {f"{name}_text_env_turn": c // n for name, c in zip(COUNT_NAMES, counts) if c}
+    per_turn["decode_attn_split_text_env_turn"] = counts.split // n
 
     lm = LMServer(core, tok)
     prompts = ["Wordle:\n", "Wordle:\nc r a n e\nb b y b g\n", "Wordle:\ns l a t e\ng b b b y\n", "hello"]
@@ -1680,7 +1716,10 @@ def _want(L: int, fwd: int = 0, dec: int = 0, bwd: int = 0) -> tuple:
 
 
 def _path_counts(path: str, counts: tuple) -> dict:
-    return {f"{name}_{path}": n for name, n in zip(COUNT_NAMES, counts)}
+    out = {f"{name}_{path}": n for name, n in zip(COUNT_NAMES, counts)}
+    if isinstance(counts, _Counts):
+        out[f"decode_attn_split_{path}"] = counts.split
+    return out
 
 
 def _timed_steps(label: str, step, state, batch, want: tuple, device="cuda") -> dict:
@@ -3522,6 +3561,8 @@ def phase_gptj_kernel_checks() -> dict:
             for padded in (False, True)]
     out = {"flash_fwd_gptj_rollout": _mean_rows(roll), "flash_fwd_gptj_turn": _mean_rows(turn[1:])}
     out["flash_fwd_gptj_turn"]["err"] = max(r["err"] for r in turn)
+    # 3jt's ILQL step (Jtr): the windows of B=32, T=160, no padding bias
+    out["flash_fwd_gptj_train_step"] = _gptj_flash_row(TRAIN_B, h, dh, TRAIN_T, TRAIN_T, TRAIN_T, False, gen, sdpa)
     dec_roll = [_gptj_decode_row(GPTJ_B, h, dh, index, T_MAX, False, gen, sdpa, reps=5)
                 for index in GPTJ_ROLLOUT_FILLS[1::GPTJ_FILL_STRIDE]]
     dec_turn = [_gptj_decode_row(GPTJ_TURN_B, h, dh, index, TN_LEN + TN_NEW, True, gen, sdpa, reps=5)
@@ -3608,6 +3649,7 @@ def phase_gptj() -> dict:
     for rep in range(GPTJ_REPS):
         out, counts, s = _counted(rollout)
         check(counts == want_roll, f"GPT-J rollout {rep}: {_fmt_counts(counts)}, want {want_roll}")
+        check(counts.split == 0, f"GPT-J rollout {rep}: {counts.split} split-route decode launches (Dh = 256)")
         _check_rollout(out, env, GPTJ_B)
         times.append(s)
         log(f"GPT-J rollout {rep} B={GPTJ_B}: {s:.4f} s, {_fmt_counts(counts)}, return "
@@ -3641,6 +3683,7 @@ def phase_gptj() -> dict:
     for rep in range(GPTJ_REPS):
         answers, counts, s = _counted(turn)
         check(counts == want_turn, f"GPT-J Text-Nav turn {rep}: {_fmt_counts(counts)}, want {want_turn}")
+        check(counts.split == 0, f"GPT-J Text-Nav turn {rep}: {counts.split} split-route decode launches (Dh = 256)")
         check(len(answers) == GPTJ_TURN_B and all(isinstance(a, str) for a in answers), "GPT-J Text-Nav turn answers")
         times.append(s)
     dt = sorted(times)[len(times) // 2]
@@ -3800,6 +3843,87 @@ def phase_gptj_train() -> dict:
 
 
 
+# ---------------- slice 15: K4's split route ----------------
+
+SPLIT_T_MAX = 832  # 2s: the caches of the split checks (the f32 dialog policy's 768 + 48, rounded up)
+SPLIT_INDICES = (127, 128, 300, 791)  # 2 splits of 64; of 64 and 65; up to 4 of ~75; up to 12 of ~66
+SPLIT_MAX_PAD = 300  # left padding up to 300 keys: longer than a split at every checked B x H
+
+
+def _split_inputs(b, h, dh, t_max, index, dtype, gen, max_pad):
+    """q [b,h,1,dh], a [b,h,t_max,dh] cache and a left-pad bias whose first
+    row masks min(index, max_pad) keys (longer than a split, so whole
+    splits of that row see masked keys only); key `index` stays visible."""
+    q = torch.randn(b, h, 1, dh, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, h, t_max, dh, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, h, t_max, dh, device="cuda", generator=gen).to(dtype)
+    n_pad = torch.randint(0, min(index, max_pad) + 1, (b,), device="cuda", generator=gen)
+    n_pad[0] = min(index, max_pad)
+    bias = torch.where(torch.arange(t_max, device="cuda")[None, :] >= n_pad[:, None], 0.0, _NEG_BIG).float()
+    return q, k, v, bias
+
+
+def _decode_row(label, b, h, dh, indices, t_max, dtype, gen, max_pad, reps=20) -> dict:
+    """K4 at `indices` of one path's shape, each launch checked against the
+    plain version on the route `_decode_splits` picks; per-launch means of
+    the kernel's, plain version's and SDPA's ms, the bound (bytes with the
+    bias) and the split count."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = dh**-0.5
+    rows = []
+    for index in indices:
+        q, k, v, bias = _split_inputs(b, h, dh, t_max, index, dtype, gen, max_pad)
+        err = _check_decode(q, k, v, index, bias, dtype, f"{label} index={index}")
+        n = index + 1
+        kn, vn, mask = k[:, :, :n], v[:, :, :n], (bias[:, :n] == 0)[:, None, None, :]
+        n_bytes, flops = decode_work(b, h, dh, n, dtype)
+        row = dict(ms=cuda_ms(lambda: decode_attention(q, k, v, index, bias, scale), reps),
+                   plain_ms=cuda_ms(lambda: _plain_decode_attention(q, k, v, index, bias, scale), 5, 1),
+                   library_ms=cuda_ms(lambda: sdpa(q, kn, vn, attn_mask=mask, scale=scale), reps),
+                   splits=_decode_splits(b, h, dh, n, _device_sms(q.device)))
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes + 4 * b * n, flops, dtype)
+        rows.append(dict(row, err=err))
+    mean = _mean_rows(rows)
+    log(f"time decode_attn {label} B={b} H={h} Dh={dh} {str(dtype)[6:]} indices {indices[0]}..{indices[-1]} "
+        f"({len(indices)} launches, mean per launch): " + " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in mean.items())
+        + f" bound_share={mean['bound_ms'] / mean['ms']:.3f}")
+    return mean
+
+
+def phase_split_checks() -> tuple:
+    """Phase 2s: K4's split route (Dh <= 128 below two blocks per SM, keys
+    cut into splits merged in one launch) against its plain version, f32
+    and bf16, at Dh 32, 48, 64 and 128, B x H from 1 to one below the
+    threshold (2 x SMs), indices across split boundaries, and left padding
+    longer than a split; then its times at a served Text-Nav turn
+    (GPT-2-small, B=16, bf16, fills 640..675) and a text-env turn's decode
+    (B=8, bf16, fills 128..137), each beside its bound, plain and SDPA.
+    Returns the max error and the two rows."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    n_sms = _device_sms(torch.device("cuda"))
+    err, n_checks, split0 = 0.0, 0, decode_attention.split_launches
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (32, 48, 64, 128):
+            for b, h in ((1, 1), (1, 4), (4, H), (16, 4), (16, H), (2 * n_sms - 1, 1)):
+                for index in SPLIT_INDICES:
+                    q, k, v, bias = _split_inputs(b, h, dh, SPLIT_T_MAX, index, dtype, gen, SPLIT_MAX_PAD)
+                    err = max(err, _check_decode(q, k, v, index, bias, dtype,
+                                                 f"split route B={b} H={h} Dh={dh} index={index}"))
+                    n_checks += 1
+    n_split = decode_attention.split_launches - split0
+    check(n_split == n_checks, f"split route checks: {n_split} of {n_checks} launches on the split route")
+    log(f"check decode_attn split route (2s): {n_checks} launches (f32, bf16; Dh 32, 48, 64, 128; B x H 1 .. "
+        f"{2 * n_sms - 1}; indices {SPLIT_INDICES}; left padding up to {SPLIT_MAX_PAD} keys), all on the split "
+        f"route, max_abs_err={err:.3e} (atol, rtol f32 {TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]})")
+    rows = {"text_nav_turn": _decode_row("Text-Nav turn", 16, H, DH, list(range(TN_LEN, TN_LEN + TN_NEW, 3)),
+                                         TN_LEN + TN_NEW, torch.bfloat16, gen, TN_LEN - 1),
+            "text_env_turn": _decode_row("text-env turn", 8, H, DH, list(range(T_MAX, T_MAX + 10)), T_MAX + 10,
+                                         torch.bfloat16, gen, T_MAX - 1)}
+    err = max([err] + [r["err"] for r in rows.values()])
+    return err, rows
+
+
 # ---------------- slice 14: runs that repeat ----------------
 
 # 3q's kernel reruns: every variant and route of K1-K4 launched twice on the
@@ -3815,6 +3939,7 @@ RERUN_FWD_CASES = (
     ("wide serving", torch.bfloat16, GPTJ_B, GPTJ_H, GPTJ_DH, 10, T_MAX, False),
     ("wide training", torch.bfloat16, TRAIN_B, GPTJ_H, GPTJ_DH, TRAIN_T, TRAIN_T, False),
     ("simt serving", torch.float32, 16, 4, 64, DIALOG_MAX_LEN, DIALOG_MAX_LEN, True),
+    ("simt oracle", torch.float32, 16, 4, 32, ORACLE_INPUT, ORACLE_INPUT, True),
     ("simt training", torch.float32, TRAIN_B, H, DH, TRAIN_T, TRAIN_T, True),
 )
 # K2 and K3 (label, dtype, b, h, dh, Tq, S, padding): the ILQL step and the
@@ -3831,12 +3956,16 @@ RERUN_BWD_CASES = (
 )
 # K4 (label, dtype, b, h, dh, cache slots, index): the Wordle rollout; GPT-J's
 # rollout (B·H = 4,096: the common route) and Text-Nav turn (B·H = 256: the
-# Dh > 128 route); the f32 decoder oracle's fidelity probe
+# Dh > 128 route); the f32 decoder oracle's fidelity probe; the split route
+# at the f32 dialog policy's last slot (B·H = 64) and a GPT-2-small Text-Nav
+# turn's (B·H = 192)
 RERUN_DECODE_CASES = (
     ("serving", torch.bfloat16, B, H, DH, T_MAX, 67),
     ("Dh 256, common route", torch.bfloat16, GPTJ_B, GPTJ_H, GPTJ_DH, T_MAX, 100),
     ("Dh 256, own route", torch.bfloat16, GPTJ_TURN_B, GPTJ_H, GPTJ_DH, TN_LEN + TN_NEW, TN_LEN + TN_NEW - 1),
     ("f32", torch.float32, 100, 4, 32, ORACLE_INPUT + ORACLE_NEW, ORACLE_INPUT + ORACLE_NEW - 1),
+    ("split f32", torch.float32, 16, 4, 64, DIALOG_MAX_LEN + DIALOG_NEW, DIALOG_MAX_LEN + DIALOG_NEW - 1),
+    ("split bf16", torch.bfloat16, 16, H, DH, TN_LEN + TN_NEW, TN_LEN + TN_NEW - 1),
 )
 RERUN_ILQL_STEPS = 3  # 3q: ILQL steps at 3t's point from one seed, run twice
 RERUN_T5_WINDOWS = 32  # 3q: two B=16 steps of the T5 oracle trainer
@@ -3886,8 +4015,11 @@ def _rerun_kernels() -> int:
         n += 1
     for label, dtype, b, h, dh, t_max, index in RERUN_DECODE_CASES:
         q, k, v, bias = _decode_inputs(index, dtype, True, gen, b=b, h=h, t_max=t_max, dh=dh)
-        _same(f"decode_attn {label} B={b} H={h} Dh={dh} index={index}",
-              *([decode_attention(q, k, v, index, bias, dh**-0.5)] for _ in range(2)))
+        split0 = decode_attention.split_launches
+        runs = [[decode_attention(q, k, v, index, bias, dh**-0.5)] for _ in range(2)]
+        check((decode_attention.split_launches - split0 == 2) == label.startswith("split"),
+              f"rerun decode_attn {label}: {decode_attention.split_launches - split0} split-route launches of 2")
+        _same(f"decode_attn {label} B={b} H={h} Dh={dh} index={index}", *runs)
         n += 1
     torch.cuda.synchronize()
     return n
@@ -3986,7 +4118,12 @@ def main() -> int:
         gptj_shapes = phase_gptj_kernel_checks()
         for name in ("flash_fwd", "decode_attn"):
             errs[name] = max(errs[name], *(gptj_shapes[f"{name}_{path}"]["err"] for path in ("gptj_rollout", "gptj_turn")))
+        errs["flash_fwd"] = max(errs["flash_fwd"], gptj_shapes["flash_fwd_gptj_train_step"]["err"])
         log(f"phase 2j (GPT-J, Dh=256): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        split_err, split_rows = phase_split_checks()
+        errs["decode_attn"] = max(errs["decode_attn"], split_err)
+        log(f"phase 2s (K4's split route): {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
         shapes = phase_main_path_shapes()
         shapes.update(phase_train_shapes())
@@ -4104,11 +4241,25 @@ def main() -> int:
                 entry[f"launches_{path}"] = launches[f"{entry['name']}_{path}"]
             if f"{entry['name']}_tc_{path}" in launches:
                 entry[f"tc_launches_{path}"] = launches[f"{entry['name']}_tc_{path}"]
-    # K1 and K4 at GPT-J's Dh=256 (2j's per-launch means over 3j's launches)
+    # K1 and K4 at GPT-J's Dh=256 (2j's per-launch means over 3j's launches),
+    # and K1 at 3jt's ILQL-step windows
     for entry in (kernels[0], kernels[3]):
         for path in ("gptj_rollout", "gptj_turn"):
             row = gptj_shapes[f"{entry['name']}_{path}"]
             entry.update({f"{k}_{path}": v for k, v in row.items() if k != "err"})
+    kernels[0].update({f"{k}_gptj_train_step": v for k, v in gptj_shapes["flash_fwd_gptj_train_step"].items()
+                       if k != "err"})
+    # K4's split route: its launches on the main path (R: none, checked in
+    # phase 3, as J's and Jt's in 3j) and on each later path, and 2s's times
+    # at a Text-Nav turn and a text-env turn
+    decode = kernels[3]
+    decode["split_launches"] = launches["decode_attn_split"]
+    for key in sorted(launches):
+        if key.startswith("decode_attn_split_"):
+            decode[f"split_launches_{key[len('decode_attn_split_'):]}"] = launches[key]
+    decode["split_launches_all_paths"] = sum(v for k, v in decode.items() if k.startswith("split_launches"))
+    for path, row in split_rows.items():
+        decode.update({f"{k}_{path}": v for k, v in row.items() if k != "err"})
     # K2 and K3 at GPT-J's Dh=256 (phase 2's rows at 3jt's ILQL-step and BC-window shapes;
     # library = SDPA's backward of the pair, simt = the CUDA-core route they replaced)
     for entry, kind in ((kernels[1], "dq"), (kernels[2], "dkv")):
@@ -4116,10 +4267,18 @@ def main() -> int:
             entry.update({f"ms_{path}": row[f"{kind}_ms"], f"plain_ms_{path}": row[f"plain_{kind}_ms"],
                           f"bound_ms_{path}": row[f"bound_{kind}_ms"], f"bound_by_{path}": row[f"bound_{kind}_by"],
                           f"library_ms_{path}": row["library_bwd_ms"], f"simt_ms_{path}": row[f"simt_{kind}_ms"]})
-    # every f32 dialog-gate launch takes the CUDA-core variants (2p's f32 timings)
+    # every f32 dialog-gate launch takes the CUDA-core variants (2p's f32 timings);
+    # f32_dialog_loss_ms ranks the kernels for a redesign: the cut gates'
+    # launches (3e) times the mean excess over the bound at 2p's f32 shapes
     for entry in kernels:
         entry["f32_dialog"] = [{k: v for k, v in row.items() if k != "kernel"}
                                for row in dialog_f32 if row["kernel"] == entry["name"]]
+        rows = entry["f32_dialog"]
+        gate_launches = sum(entry.get(f"launches_dialog_gate_{g}", 0)
+                            for g in ("car_dealer", "dialog_ilql", "twenty_questions"))
+        entry["f32_dialog_loss_ms"] = gate_launches * sum(r["ms"] - r["bound_ms"] for r in rows) / max(1, len(rows))
+    log("f32 dialog ranking (cut gates' launches x mean (kernel - bound) ms at 2p's f32 shapes): " + ", ".join(
+        f"{e['name']} {e['f32_dialog_loss_ms']:.2f}" for e in sorted(kernels, key=lambda e: -e["f32_dialog_loss_ms"])))
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

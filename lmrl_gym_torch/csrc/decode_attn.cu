@@ -14,15 +14,19 @@
 // warp streams 32/G key rows of K and V per load instruction, coalesced.
 // Each group runs its own online softmax over keys g, g + NG, ...; the NG
 // partial (max, sum, acc) triples are merged in shared memory at the end.
-// Dh in (128, 256] (GPT-J) at small B x H takes a route of its own, below:
+// At small B x H (below two blocks per SM) the same groups run over splits
+// of the keys, several blocks per (b, h), in one launch (the split route,
+// below). Dh in (128, 256] (GPT-J) at small B x H takes a route of its own:
 // 8 lanes per key row, each holding 32 dims.
 //
 // What bounds it on an H100: reading K and V of the filled prefix, about
-// 2 FLOP per byte — device-memory bandwidth. What this simple design leaves
-// on the table: no split of long caches over several blocks up to Dh = 128
-// (one block per (b, h) is enough parallelism at B*H = 6144 but not at
-// small batch), no cp.async/TMA prefetch of the next key rows, and G-fold
-// redundant exp() per key across a group's lanes.
+// 2 FLOP per byte — device-memory bandwidth, where enough blocks are in
+// flight (B x H = 6,144 on the serving rollout). At small B x H the bound is
+// latency: one block per (b, h) walks its fill in dependent steps, each a
+// device-memory round trip, with too few bytes in flight to fill the card;
+// the split route answers that. What the design leaves on the table: no
+// cp.async/TMA ring, and G-fold redundant exp() per key across a group's
+// lanes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -334,12 +338,227 @@ __global__ void __launch_bounds__(kWideThreads, 2) decode_attn_wide_kernel(
   }
 }
 
+// ---- Dh <= 128 at small B x H: the split route -------------------------------
+//
+// Below two blocks per SM (the wrapper's `_decode_splits` decides, since
+// `index` is a host int) one block per (b, h) leaves most SMs idle or
+// with one block: B x H = 64 (an f32 dialog policy, B = 16 x 4 heads) fills
+// 64 of 132 SMs, and at B x H = 192 (a served Text-Nav turn) each SM holds
+// 1.45 blocks. Such a block walks its whole fill one dependent step at a time
+// (~50 steps at slot 792, each a device-memory round trip), so the route is
+// bound by latency, not by the card's bytes. Here the keys 0 .. n_keys - 1
+// are cut into `gridDim.x` consecutive splits of equal size to a key (at
+// least 64 keys each, about 4 blocks per SM in all), and each split block runs the grouped
+// online softmax above over its own range, with every group issuing the
+// 16-byte loads of kSplitRows key rows (and their bias) before it uses the
+// first. Each block merges its groups and writes its (m, l, acc[Dh]) partial
+// to f32 scratch; then, after a __threadfence(), one thread takes a ticket
+// from an int counter per (b, h). The block that takes the last ticket reads
+// every partial and merges them in split order (so every run gives the same
+// bits, whichever block finishes last), writes out, and resets the counter to
+// 0 for the next launch on the stream (the wrapper keeps one zeroed counter
+// buffer per device and stream). One launch: the paths that decode at small
+// batch are paced by the host, and a second merge kernel would add a launch
+// to every served token. A split whose every key is masked by left padding
+// has m ~ -0.7 * FLT_MAX and weight exp(m - M) = 0 in the merge; a group
+// that gets no key of its split keeps m = -inf and weight 0.
+//
+// The Dh = 256 route above tried splits and dropped them (its note: no
+// faster at B = 16); there B x H = 256 already gave two blocks per SM and a
+// block kept 32 key rows of 512 bytes in flight. Up to Dh = 128 a block of
+// the kernel above keeps 16 rows of 128 bytes (Dh = 64, bf16) in flight and
+// issues the next row only after this row's softmax update, so the card is
+// short of bytes in flight, which splits and the kSplitRows prefetch supply.
+constexpr int kSplitRows = 4;   // key rows in flight per group
+constexpr int kMaxSplits = 64;  // ops/decode_attention.py::_SPLIT_MAX
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads) decode_attn_split_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, T* __restrict__ out, float* __restrict__ part, int* __restrict__ count,
+    int H, int Dh, int n_keys,
+    int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_st,
+    int64_t v_sb, int64_t v_sh, int64_t v_st, int64_t bias_sb, float scale) {
+  constexpr int kRowsPerWarp = 32 / G;
+  constexpr int kGroups = kWarps * kRowsPerWarp;
+  constexpr int kDmax = 8 * G;
+  static_assert(kGroups <= 32, "one group per lane of warp 0");
+  __shared__ float sM[kGroups], sL[kGroups], sW[kMaxSplits];
+  __shared__ float sAcc[kGroups][kDmax];
+  __shared__ float sMax, sLsum;
+  __shared__ int sLast;
+
+  const int n_splits = gridDim.x;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int li = lane % G;                           // lane within the group
+  const int g = warp * kRowsPerWarp + lane / G;      // group id
+  const int d0 = 8 * li;
+  const bool has_dims = d0 < Dh;                     // Dh % 8 == 0: all 8 or none
+  // split s reads keys [s n / S, (s + 1) n / S): S <= n / 64 splits of >= 64 keys
+  const int j_begin = (int)((int64_t)split * n_keys / n_splits);
+  const int j_end = (int)((int64_t)(split + 1) * n_keys / n_splits);
+
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + h * k_sh;
+  const T* vb = v + b * v_sb + h * v_sh;
+  const float* biasb = bias ? bias + b * bias_sb : nullptr;
+
+  float qf[8], acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    qf[e] = has_dims ? to_f(qb[d0 + e]) * scale : 0.f;
+    acc[e] = 0.f;
+  }
+
+  float m = -INFINITY, l = 0.f;
+  // group g reads keys j_begin + g, + kGroups, ...; each step kSplitRows of
+  // them, all loads issued first. The trip count is uniform across the warp
+  // (the shuffles need every lane).
+  for (int jw = j_begin + warp * kRowsPerWarp; jw < j_end; jw += kGroups * kSplitRows) {
+    Raw8<T> kr[kSplitRows], vr[kSplitRows];
+    float bj[kSplitRows];
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      const int j = jw + r * kGroups + lane / G;
+      bj[r] = 0.f;
+      if (j < j_end) {
+        if (has_dims) {
+          kr[r] = load_raw(kb + j * k_st + d0);
+          vr[r] = load_raw(vb + j * v_st + d0);
+        }
+        if (biasb) bj[r] = biasb[j];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      const int j = jw + r * kGroups + lane / G;
+      const bool live = j < j_end;
+      float dot = 0.f;
+      if (live && has_dims) {
+        float kf[8];
+        unpack(kr[r], kf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dot = fmaf(qf[e], kf[e], dot);
+      }
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (live) {
+        const float s = biasb ? dot + bj[r] : dot;
+        const float m_new = fmaxf(m, s);
+        const float alpha = expf(m - m_new);
+        const float p = expf(s - m_new);
+        l = l * alpha + p;
+        m = m_new;
+        if (has_dims) {
+          float vf[8];
+          unpack(vr[r], vf);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] = fmaf(p, vf[e], acc[e] * alpha);
+        }
+      }
+    }
+  }
+
+  if (li == 0) {
+    sM[g] = m;
+    sL[g] = l;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) sAcc[g][d0 + e] = acc[e];
+  __syncthreads();
+
+  // this split's partial: the groups' weights by warp 0; the split holds at
+  // least one key, so its max is finite
+  if (warp == 0) {
+    const float mg = lane < kGroups ? sM[lane] : -INFINITY;
+    float M = mg;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    const float w = lane < kGroups ? expf(mg - M) : 0.f;
+    float lw = lane < kGroups ? sL[lane] * w : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lw += __shfl_xor_sync(0xffffffffu, lw, off);
+    if (lane < kGroups) sW[lane] = w;
+    if (lane == 0) {
+      sMax = M;
+      sLsum = lw;
+    }
+  }
+  __syncthreads();
+  const int row = Dh + 2;  // a partial: m, l, acc[Dh]
+  float* mine = part + ((int64_t)bh * n_splits + split) * row;
+  for (int d = threadIdx.x; d < Dh; d += kThreads) {
+    float o = 0.f;
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) o = fmaf(sAcc[i][d], sW[i], o);
+    mine[2 + d] = o;
+  }
+  if (threadIdx.x == 0) {
+    mine[0] = sMax;
+    mine[1] = sLsum;
+  }
+  __threadfence();  // the partial is visible to every block before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0) sLast = atomicAdd(count + bh, 1) == n_splits - 1;
+  __syncthreads();
+  if (!sLast) return;
+  __threadfence();
+
+  // the last block of (b, h): merge the partials in split order (L2 reads)
+  const float* all = part + (int64_t)bh * n_splits * row;
+  if (warp == 0) {
+    float M = -INFINITY;
+    for (int s = lane; s < n_splits; s += 32) M = fmaxf(M, __ldcg(all + s * row));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    for (int s = lane; s < n_splits; s += 32) sW[s] = expf(__ldcg(all + s * row) - M);
+    __syncwarp();
+    if (lane == 0) {
+      float lsum = 0.f;
+      for (int s = 0; s < n_splits; ++s) lsum = fmaf(__ldcg(all + s * row + 1), sW[s], lsum);
+      sLsum = fmaxf(lsum, 1e-30f);
+      count[bh] = 0;  // ready for the next launch on this stream
+    }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < Dh; d += kThreads) {
+    float o = 0.f;
+    for (int s = 0; s < n_splits; ++s) o = fmaf(__ldcg(all + s * row + 2 + d), sW[s], o);
+    out[(int64_t)bh * Dh + d] = from_f<T>(o / sLsum);
+  }
+}
+
+template <typename T, int G>
+int launch_split(const void* q, const void* k, const void* v, const void* bias, void* out,
+                 void* part, void* count, int B, int H, int Dh, int n_keys, int splits,
+                 int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_st,
+                 int64_t v_sb, int64_t v_sh, int64_t v_st, int64_t bias_sb, float scale,
+                 cudaStream_t stream) {
+  decode_attn_split_kernel<T, G><<<dim3(splits, H, B), kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<T*>(out), static_cast<float*>(part),
+      static_cast<int*>(count), H, Dh, n_keys,
+      q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, bias_sb, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* bias, void* out,
-             int B, int H, int Dh, int n_keys, int64_t q_sb, int64_t q_sh,
-             int64_t k_sb, int64_t k_sh, int64_t k_st,
+             void* part, void* count, int B, int H, int Dh, int n_keys, int splits,
+             int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_st,
              int64_t v_sb, int64_t v_sh, int64_t v_st, int64_t bias_sb, float scale,
              cudaStream_t stream) {
+  if (splits > 1) {
+#define SPLIT_ARGS q, k, v, bias, out, part, count, B, H, Dh, n_keys, splits, q_sb, q_sh, \
+    k_sb, k_sh, k_st, v_sb, v_sh, v_st, bias_sb, scale, stream
+    if (Dh <= 32) return launch_split<T, 4>(SPLIT_ARGS);
+    if (Dh <= 64) return launch_split<T, 8>(SPLIT_ARGS);
+    return launch_split<T, 16>(SPLIT_ARGS);
+#undef SPLIT_ARGS
+  }
 #define DECODE_ARGS q, k, v, bias, out, B, H, Dh, n_keys, q_sb, q_sh, k_sb, k_sh, k_st, \
     v_sb, v_sh, v_st, bias_sb, scale, stream
   if (Dh <= 32) return launch<T, 4>(DECODE_ARGS);
@@ -360,21 +579,31 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias, void
 // rows are addressed by (b, h, slot) strides with a contiguous last dim and
 // must be 16-byte aligned (the wrapper checks; for Dh > 128 q's rows too);
 // keys 0 .. n_keys - 1 (= index) are read. out is contiguous [B, H, Dh].
-// bias is [B, >= n_keys] float32 with row stride bias_sb, or null. Returns
-// cudaGetLastError().
+// bias is [B, >= n_keys] float32 with row stride bias_sb, or null. splits = 1
+// takes one block per (b, h); splits > 1 (Dh <= 128, splits <= n_keys) the
+// split route, split s reading keys [s * n_keys / splits, (s + 1) * n_keys /
+// splits), with `part` f32 scratch of B * H * splits * (Dh + 2) and `count`
+// B * H ints that are 0 (and are 0 again when the launch ends). Returns
+// cudaGetLastError() (cudaErrorInvalidValue, without launching, for what the
+// kernels do not take).
 extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* v,
-                           const void* bias, void* out, int B, int H, int Dh, int n_keys,
+                           const void* bias, void* out, void* part, void* count,
+                           int B, int H, int Dh, int n_keys, int splits,
                            long long q_sb, long long q_sh,
                            long long k_sb, long long k_sh, long long k_st,
                            long long v_sb, long long v_sh, long long v_st,
                            long long bias_sb, float scale, void* stream) {
   if (Dh <= 0 || Dh > 256 || Dh % 8 != 0 || B <= 0 || H <= 0 || n_keys <= 0 ||
-      B > 65535 || H > 65535) {
+      B > 65535 || H > 65535 || splits < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (splits > 1 && (Dh > 128 || splits > kMaxSplits || splits > n_keys || part == nullptr ||
+                     count == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ENTRY_ARGS q, k, v, bias, out, B, H, Dh, n_keys, q_sb, q_sh, k_sb, k_sh, k_st, \
-    v_sb, v_sh, v_st, bias_sb, scale, st
+#define ENTRY_ARGS q, k, v, bias, out, part, count, B, H, Dh, n_keys, splits, q_sb, q_sh, \
+    k_sb, k_sh, k_st, v_sb, v_sh, v_st, bias_sb, scale, st
   if (dtype == 0) return dispatch<float>(ENTRY_ARGS);
   if (dtype == 1) return dispatch<__nv_bfloat16>(ENTRY_ARGS);
   return (int)cudaErrorInvalidValue;

@@ -1,7 +1,7 @@
 """Single-token KV-cache decode attention: CUDA kernel `csrc/decode_attn.cu`
-(with a route of its own for Dh > 128 at small B·H, as GPT-J's served
-turns give it: 8 lanes per key row, each holding 32 dims) and its plain
-PyTorch version.
+(with a split route for Dh ≤ 128 at small B·H, and a route of its own for
+Dh > 128 at small B·H, as GPT-J's served turns give it: 8 lanes per key
+row, each holding 32 dims) and its plain PyTorch version.
 
 Replaces the Pallas kernel `lmrl_gym_tpu/ops/decode_attention.py::
 _decode1_kernel` (K4) behind `_decode_attention_dispatch`. The function:
@@ -13,7 +13,14 @@ On an H100 the kernel is bound by device-memory bandwidth: it reads K and
 V of the filled prefix (slots 0..index) once, about 2 FLOP per byte, and
 never touches the slots past `index`, so its traffic scales with the fill
 and not with T_max. `index` is a host int (the actor's schedule is
-static), so no device sync is needed to bound the read.
+static), so no device sync is needed to bound the read. At small B·H (a
+served batch of 1–16) one block per (b, h) leaves the card short of bytes
+in flight: below two blocks per SM, `_decode_splits` cuts the keys into
+splits of at least 64, about four blocks per SM in all, and the kernel's
+split route merges their partial softmaxes in the same launch (the last
+block of each (b, h) to finish merges in split order, so the bits repeat),
+with a scratch buffer from `torch.empty` and a per-(device, stream) buffer
+of counters that the kernel leaves at 0.
 
 The JAX model had retired its kernel (a v5e measurement); the port runs
 this kernel on every q_len = 1 cached step on CUDA, with no flag.
@@ -21,7 +28,7 @@ this kernel on every q_len = 1 cached step on CUDA, with no flag.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -32,6 +39,48 @@ _NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
+
+# The split route (csrc/decode_attn.cu, Dh ≤ 128): taken below
+# _SPLIT_BELOW_BLOCKS_PER_SM blocks per SM, aiming at _SPLIT_BLOCKS_PER_SM
+# blocks per SM in all, each split at least _SPLIT_MIN_KEYS keys.
+_SPLIT_BELOW_BLOCKS_PER_SM = 2
+_SPLIT_BLOCKS_PER_SM = 4
+_SPLIT_MIN_KEYS = 64
+_SPLIT_MAX = 64  # the kernel's kMaxSplits
+_SPLIT_MAX_HEAD_DIM = 128
+_n_sms: Dict[int, int] = {}
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _decode_splits(B: int, H: int, Dh: int, n_keys: int, n_sms: int) -> int:
+    """How many splits the kernel cuts keys 0..n_keys − 1 into: 1 (one block
+    per (b, h)) at and above B·H = 2 blocks per SM and for Dh > 128; below
+    it, about 4 blocks per SM in all, each split at least 64 keys (the
+    kernel gives split s the keys [s·n_keys // splits, (s + 1)·n_keys //
+    splits))."""
+    bh = B * H
+    if Dh > _SPLIT_MAX_HEAD_DIM or bh >= _SPLIT_BELOW_BLOCKS_PER_SM * n_sms:
+        return 1
+    want = -(-_SPLIT_BLOCKS_PER_SM * n_sms // bh)
+    return max(1, min(want, n_keys // _SPLIT_MIN_KEYS, _SPLIT_MAX))
+
+
+def _device_sms(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _n_sms:
+        _n_sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _n_sms[index]
+
+
+def _split_counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The split route's int counter per (b, h), one buffer per device and
+    stream, zeroed once: the merging block of each (b, h) sets its counter
+    back to 0, so the next launch on the stream finds them all at 0."""
+    key = (device.index, stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros(_SPLIT_BELOW_BLOCKS_PER_SM * _device_sms(device), dtype=torch.int32,
+                                     device=device)
+    return _counters[key]
 
 
 def _plain_decode_attention(q, k, v, index: int, bias, sm_scale: float):
@@ -55,7 +104,7 @@ def _load():
         lib = _build.load("decode_attn")
         lib.decode_attn.restype = ctypes.c_int
         lib.decode_attn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
             + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p]
         )
         _lib = lib
@@ -111,22 +160,33 @@ def decode_attention(
     _check_cuda_inputs(q, k, v, index, bias)
     lib = _load()
     B, H, _, Dh = q.shape
+    n_keys = index + 1
+    splits = _decode_splits(B, H, Dh, n_keys, _device_sms(q.device))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty((B, H, 1, Dh), dtype=q.dtype, device=q.device)
+    part = count = None
+    if splits > 1:
+        part = torch.empty(B * H * splits * (Dh + 2), dtype=torch.float32, device=q.device)
+        count = _split_counters(q.device, stream)
     rc = lib.decode_attn(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
-        B, H, Dh, index + 1,
+        part.data_ptr() if part is not None else None, count.data_ptr() if count is not None else None,
+        B, H, Dh, n_keys, splits,
         q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         bias.stride(0) if bias is not None else 0,
         float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"decode_attn: kernel launch failed with CUDA error {rc}")
     decode_attention.launches += 1
+    if splits > 1:
+        decode_attention.split_launches += 1
     return out
 
 
-decode_attention.launches = 0
+decode_attention.launches = 0  # every launch
+decode_attention.split_launches = 0  # of those, the split route's

@@ -25,9 +25,13 @@ run bf16 mma.sync with f32 sums behind a 16-byte cp.async ring; the
 forward's block shape follows Tq (64 query rows per block, or one (b, h)
 per warp for Tq ≤ 16; at Dh > 128, Q in shared memory and one (b, h) per
 4-warp block for Tq ≤ 16; at Dh > 128 the backward's 8-warp blocks of 32
-rows split the head dim of their sums four ways). The "simt" kernels
-stream tiles through shared memory in fp32. See the kernel sources for
-what each leaves on the table.
+rows split the head dim of their sums four ways). The "simt" forward, which
+takes the f32 dialog gates' every prefill, train forward and score call
+(T = 256 to 768: bound by f32 FMA issue), gives each of 256 threads a 4×4
+micro-tile of scores from shared-memory tiles of Q and K (8 FMAs per
+16-byte shared load) behind a two-stage cp.async ring, 64 query rows per
+block; the "simt" backward streams tiles through shared memory in fp32.
+See the kernel sources for what each leaves on the table.
 
 Unlike the JAX package (which used the kernels only for T ≥ 1024 on a TPU),
 the port runs them for every attention with more than one query on CUDA:
@@ -162,14 +166,14 @@ def _variant(dtype: torch.dtype, head_dim: int, name: str) -> str:
 
 
 def _check_tc_alignment(**tensors):
-    """The tensor-core kernels copy rows in 16-byte pieces: each input must
-    start on 16 bytes, with batch, head and row strides in multiples of 8
-    elements (views into a fused qkv projection are, for Dh % 8 == 0, and so
-    are prefixes of a contiguous KV cache)."""
+    """The tensor-core kernels and the CUDA-core forward copy rows in 16-byte
+    pieces: each input must start on 16 bytes, with batch, head and row
+    strides in multiples of 8 elements (views into a fused qkv projection
+    are, for Dh % 8 == 0, and so are prefixes of a contiguous KV cache)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(
-                f"flash attention (tensor cores): {name} must start on 16 bytes with strides in multiples of 8 "
+                f"flash attention (16-byte rows): {name} must start on 16 bytes with strides in multiples of 8 "
                 f"elements, got offset {t.data_ptr() % 16} and strides {tuple(t.stride())}"
             )
 
@@ -188,7 +192,7 @@ def _launch(wrapper, name: str, pointers, strided: Dict[str, torch.Tensor], q, k
     B, H, Tq, Dh = q.shape
     S = k.shape[2]
     variant = _variant(q.dtype, Dh, name)
-    if variant == "tc":
+    if variant == "tc" or name == "flash_fwd":  # the CUDA-core backward reads scalars
         _check_tc_alignment(**strided)
     head = (_DTYPE_CODE[q.dtype],) if variant == "simt" else ()
     rc = _kernel(name, variant)(
