@@ -241,6 +241,18 @@ Phases, each of which exits non-zero on failure:
    and one full-width ILQL step (f32, B=2, T=32) on the card against the
    CPU: loss within 1e-4 relative, each parameter group's gradient within
    1e-3 in relative norm, no launch on the tensor-core variant;
+3a. configs whose attention the kernels refuse, run last:
+   no earlier path reached the model's einsum route
+   (`attention_einsum.calls`, never reset before this phase, is 0, and every
+   launch-count reset checks it too); then GPT-2-small cut to 2 layers with
+   a head dim of 28 (hidden 224 over 8 heads, f32) and with float16
+   activations, each through `Transformer.forward` on the card against the
+   CPU: a no-cache forward, a left-padded cached prefill, three 1-token
+   steps and an append, every call L einsum calls and no K1 or K4 launch,
+   logits within the f32 tolerance (Dh 28) or LOGIT_TOL (float16 against
+   the CPU's f32); the Dh 28 model's training gradient within
+   STEP_GRAD_RTOL of the CPU's, no K2 or K3 launch; and K1's wrapper,
+   called directly, still refuses both;
 5. a `{"kernels": [...]}` line: per kernel its launches on its path (per
    rollout, or per train step) and its mean time per launch over that
    path's shapes beside the bound (bytes or FLOPs at the H100's published
@@ -325,7 +337,7 @@ from lmrl_gym_torch.algos.value_policy import (
 )
 from lmrl_gym_torch.cli.tasks import build_maze_env, generate_maze_chains
 from lmrl_gym_torch.core.blocking import BlockingStrategy, Padding, Truncation
-from lmrl_gym_torch.core.device import resolve_device
+from lmrl_gym_torch.core.device import resolve_device, torch_dtype
 from lmrl_gym_torch.core.optimizer import TrainState, adamw, set_to_zero, value_and_grads
 from lmrl_gym_torch.envs import lm_oracle
 from lmrl_gym_torch.envs.base import text_env_eval
@@ -355,7 +367,7 @@ from lmrl_gym_torch.models.encdec import EncDecCore, EncoderDecoder, T5Attention
 from lmrl_gym_torch.models.generation import SamplingConfig
 from lmrl_gym_torch.models.heads import LinearHead, LinearHeadConfig, MLPHead, MLPHeadConfig
 from lmrl_gym_torch.models.interface import LMCore
-from lmrl_gym_torch.models.transformer import Transformer, init_params
+from lmrl_gym_torch.models.transformer import KVCache, Transformer, attention_einsum, init_params
 from lmrl_gym_torch.ops import _build
 from lmrl_gym_torch.ops import flash_attention as flash_module
 from lmrl_gym_torch.ops.decode_attention import _decode_splits, _device_sms, _plain_decode_attention, decode_attention
@@ -370,6 +382,7 @@ from lmrl_gym_torch.ops.flash_attention import (
     flash_bwd_dkv,
     flash_bwd_dq,
     flash_fwd,
+    kernels_take,
 )
 from lmrl_gym_torch.scripts import (
     car_dealer_ilql_gate,
@@ -1104,7 +1117,16 @@ def phase_main_path_shapes() -> dict:
     return out
 
 
+def _check_no_einsum(where: str) -> None:
+    """No path of the kernels' configs reaches the model's einsum route
+    (`attention_einsum`, the route for head dims and dtypes the kernels
+    refuse): its counter is never reset before phase 3a, so 0 here means
+    0 on every path so far."""
+    check(attention_einsum.calls == 0, f"{where}: {attention_einsum.calls} attention calls took the einsum route")
+
+
 def _reset_counts():
+    _check_no_einsum("launch counts")
     flash_fwd.launches = flash_fwd.tc_launches = 0
     decode_attention.launches = decode_attention.split_launches = 0
     flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
@@ -3850,6 +3872,115 @@ SPLIT_INDICES = (127, 128, 300, 791)  # 2 splits of 64; of 64 and 65; up to 4 of
 SPLIT_MAX_PAD = 300  # left padding up to 300 keys: longer than a split at every checked B x H
 
 
+# 3a: configs whose attention the kernels refuse, at GPT-2-small's width cut
+# to 2 layers: a head dim of 28 (hidden 224 over 8 heads; f32 on both sides,
+# held to the f32 step tolerance) and float16 activations (Dh = 64; the CPU
+# runs f32, held to LOGIT_TOL as the bf16 card runs are)
+ROUTE_CASES = (("Dh 28", dict(hidden_size=224, num_heads=8, dtype="float32"), 1e-4),
+               ("float16", dict(dtype="float16"), LOGIT_TOL))
+ROUTE_B, ROUTE_PROMPT, ROUTE_T_MAX = 4, 48, 64
+
+
+def _route_run(model, cfg, device, ids, mask, pos) -> tuple:
+    """A no-cache forward, then a cached left-padded prefill, three 1-token
+    steps and an 8-token append, each with its counts (einsum calls, K1-K4
+    launches): (logits of each call, counts of each call)."""
+    ids, mask, pos = ids.to(device), mask.to(device), pos.to(device)
+    full = torch.zeros(ROUTE_B, ROUTE_T_MAX, dtype=mask.dtype, device=device)
+    full[:, :ids.shape[1]] = mask
+    cache = KVCache.init(cfg, ROUTE_B, ROUTE_T_MAX, device=device)
+    logits, counts = [], []
+
+    def call(*args, **kw):
+        attention_einsum.calls = 0
+        _reset_counts()
+        out = model(*args, **kw)
+        _sync(device)
+        counts.append((attention_einsum.calls, flash_fwd.launches, decode_attention.launches))
+        logits.append(out[0].float().cpu())
+        return out
+
+    with torch.inference_mode():
+        call(ids, attention_mask=mask, position_ids=pos)
+        start = 0
+        for T in (ROUTE_PROMPT, 1, 1, 1, 8):
+            _, _, cache = call(ids[:, start:start + T], attention_mask=full, position_ids=pos[:, start:start + T],
+                               cache=cache)
+            start += T
+    attention_einsum.calls = 0
+    return logits, counts
+
+
+def phase_attention_route(device="cuda") -> None:
+    """The attention route of configs the kernels refuse (a head dim or a
+    dtype they do not take; the JAX model's einsum route runs them).
+    Each ROUTE_CASES model takes the einsum route on every call (no-cache
+    forward, cached prefill, 1-token steps, append: L einsum calls each, no
+    K1 or K4 launch) on the card and matches the CPU at real positions;
+    the Dh = 28 model's no-cache training gradient (plain autograd through
+    the einsum route, no K2/K3 launch) matches the CPU's within
+    STEP_GRAD_RTOL. The wrappers, called directly, still refuse both."""
+    n = ROUTE_PROMPT + 3 + 8
+    rng = np.random.default_rng(16)
+    ids = torch.from_numpy(rng.integers(0, 50257, (ROUTE_B, n))).long()
+    mask = (torch.arange(n)[None, :] >= torch.tensor([0, 3, 17, 40])[:, None]).int()
+    pos = (mask.cumsum(1) - 1).clamp(min=0)
+    real = mask.bool()
+    for name, kw, tol in ROUTE_CASES:
+        cfg = gpt2_small().replace(num_layers=2, embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, **kw)
+        check(not kernels_take(cfg.head_dim, torch_dtype(cfg.dtype)), f"{name}: the kernels take Dh {cfg.head_dim}")
+        card = init_params(cfg, seed=16, device=device)
+        cpu_cfg = cfg.replace(dtype="float32")
+        cpu = Transformer(cpu_cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        t0 = time.perf_counter()
+        got, counts = _route_run(card, cfg, device, ids, mask, pos)
+        seconds = time.perf_counter() - t0
+        ref, cpu_counts = _route_run(cpu, cpu_cfg, "cpu", ids, mask, pos)
+        want = [(cfg.num_layers, 0, 0)] * len(counts)
+        check(counts == want, f"3a {name}: (einsum, K1, K4) per call {counts}, want {want}")
+        spans, err = [0, *np.cumsum([ROUTE_PROMPT, 1, 1, 1, 8]).tolist()], 0.0
+        for i, (g, r) in enumerate(zip(got, ref)):
+            rows = real if i == 0 else real[:, spans[i - 1]:spans[i]]
+            diff = ((g - r).abs() - tol * r.abs())[rows].max().item()
+            err = max(err, (g - r).abs()[rows].max().item())
+            check(diff <= tol, f"3a {name}: call {i} card vs CPU logits differ by {(g - r).abs()[rows].max().item()} "
+                               f"(atol, rtol {tol})")
+        line = (f"phase 3a {name} (Dh {cfg.head_dim}, {cfg.dtype}, L={cfg.num_layers}): card vs CPU ({cpu_cfg.dtype}; "
+                f"CPU route (einsum, K1, K4) {cpu_counts[0]}) max logit diff {err:.3e} (atol, rtol {tol}) over a "
+                f"no-cache forward, a prefill of {ROUTE_PROMPT}, 3 steps and an append of 8 (B={ROUTE_B}, left-padded); "
+                f"per call (einsum, K1, K4) {counts[0]}; card {seconds:.2f} s")
+        if cfg.dtype == "float32":
+            w = torch.randn(ROUTE_B, n, cfg.padded_vocab_size, generator=torch.Generator().manual_seed(3))
+            grads = []
+            for model, dev in ((card, device), (cpu, "cpu")):
+                attention_einsum.calls = 0
+                _reset_counts()
+                logits = model(ids.to(dev), attention_mask=mask.to(dev), position_ids=pos.to(dev))[0]
+                params = [p for p in model.parameters() if p.requires_grad]
+                g = torch.autograd.grad((logits * w.to(dev)).sum(), params)
+                _sync(dev)
+                check((attention_einsum.calls, flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+                      == (cfg.num_layers, 0, 0, 0), f"3a {name} training forward: route counts")
+                grads.append([x.cpu() for x in g])
+            attention_einsum.calls = 0
+            rel = max(((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(*grads))
+            check(rel <= STEP_GRAD_RTOL, f"3a {name}: card vs CPU gradient relative error {rel}")
+            line += f"; training gradient card vs CPU max relative norm error {rel:.3e} (tol {STEP_GRAD_RTOL})"
+        log(line)
+        del card
+    # called directly, the wrappers refuse what the route sends elsewhere
+    q28 = torch.zeros(1, 2, 4, 28, device=device)
+    h16 = torch.zeros(1, 2, 4, 64, device=device, dtype=torch.float16)
+    for args, exc in (((q28, q28, q28), ValueError), ((h16, h16, h16), TypeError)) if device == "cuda" else ():
+        try:
+            flash_fwd(*args)
+        except exc:
+            continue
+        raise SmokeFailure(f"flash_fwd took {args[0].dtype} Dh={args[0].shape[-1]}")
+    _check_no_einsum("3a")
+
+
 def _split_inputs(b, h, dh, t_max, index, dtype, gen, max_pad):
     """q [b,h,1,dh], a [b,h,t_max,dh] cache and a left-pad bias whose first
     row masks min(index, max_pad) keys (longer than a split, so whole
@@ -4184,6 +4315,10 @@ def main() -> int:
         log(f"phase 4 serving: {time.perf_counter() - t0:.1f} s")
         phase_train_card_vs_cpu(launches["config"])
         log(f"phase 4: {time.perf_counter() - t0:.1f} s")
+        _check_no_einsum("every path")
+        t0 = time.perf_counter()
+        phase_attention_route()
+        log(f"phase 3a: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -45,9 +45,9 @@ class TransformerConfig:
     pad_vocab_to_multiple: int = 128
     dtype: str = "bfloat16"  # activation dtype
     remat: bool = False
-    # The JAX package's kernel switches. The port's attention always runs
-    # its CUDA kernels on CUDA tensors (dispatch by shape, models/
-    # transformer.py::Attention); the fields stay for config round-trips.
+    # The JAX package's kernel switches. With use_flash_attention off, every
+    # attention call takes the einsum route, as in the JAX model
+    # (models/transformer.py::Attention).
     use_flash_attention: bool = True
     sequence_parallel: bool = False
 

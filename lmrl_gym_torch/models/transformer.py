@@ -13,8 +13,11 @@ cast to the config's activation dtype where used, as flax's
 `Dense(dtype=...)` does; that cast is free when the storage dtype already
 matches (the serving path keeps bf16 weights).
 
-Attention dispatch, by shape, on CUDA and CPU alike (CPU tensors take
-each kernel's plain PyTorch version):
+Attention dispatch, chosen up front for the layer, on CUDA and CPU alike
+(CPU tensors take each kernel's plain PyTorch version). When
+`config.use_flash_attention` is on and the kernels take the head dim and
+dtype (`kernels_take`: Dh a multiple of 8 up to 256, f32 or bf16), by
+shape:
 
 - no cache → `flash_attention`, offset 0;
 - cache and T > 1 (prefill, observation append) → write K/V at
@@ -23,6 +26,12 @@ each kernel's plain PyTorch version):
   at offset = index;
 - cache and T == 1 → write, then `decode_attention`, which reads slots
   0..index only.
+
+Otherwise every attention call of the layer (no-cache forwards, cached
+prefills and single-token steps) takes `attention_einsum`, the JAX
+model's einsum branch, which it takes whenever its flag is off or
+`supports_flash` refuses the shape; the kernels are never tried and no
+error is caught.
 
 The JAX package's cached einsum path attends over the whole T_max buffer;
 the slots past the fill contribute exact zeros there, so both compute the
@@ -35,8 +44,8 @@ attention goes through `flash_attention`'s autograd function (K1 forward,
 K2 + K3 backward). Attention-probability dropout (`attn_pdrop > 0` in
 training) takes the JAX package's einsum path instead, as the JAX module
 does (it leaves flash and the ring there, never running this dropout in a
-kernel): `attention_with_dropout`, plain PyTorch, with plain autograd for
-its backward, so such a step launches no K1, K2 or K3.
+kernel): `attention_einsum` with a `drop`, plain PyTorch, with plain
+autograd for its backward, so such a step launches no K1, K2 or K3.
 """
 from __future__ import annotations
 
@@ -54,7 +63,7 @@ from lmrl_gym_torch.core.random import draw_uniform
 from lmrl_gym_torch.models.config import TransformerConfig
 from lmrl_gym_torch.ops.decode_attention import decode_attention
 from lmrl_gym_torch.ops.flash_attention import _NEG_BIG as _MASK_BIAS
-from lmrl_gym_torch.ops.flash_attention import flash_attention
+from lmrl_gym_torch.ops.flash_attention import flash_attention, kernels_take
 from lmrl_gym_torch.parallel.mesh import Mesh
 from lmrl_gym_torch.parallel.ring_attention import make_ring_attention
 
@@ -111,29 +120,43 @@ def dropout(
     return torch.where(keep.to(x.device), x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def attention_with_dropout(
-    q: torch.Tensor,  # [B, H, T, Dh]
-    k: torch.Tensor,  # [B, H, T, Dh]
+def attention_einsum(
+    q: torch.Tensor,  # [B, H, T, Dh], right-aligned: queries at positions S - T .. S - 1
+    k: torch.Tensor,  # [B, H, S, Dh]
     v: torch.Tensor,
-    bias: Optional[torch.Tensor],  # [B, T] additive: 0 visible, _MASK_BIAS masked; None = all visible
+    bias: Optional[torch.Tensor],  # [B, S] additive: 0 visible, _MASK_BIAS masked; None = all visible
     sm_scale: float,
     dtype: torch.dtype,
-    drop: Callable[[torch.Tensor], torch.Tensor],
+    drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """The JAX package's einsum attention with dropout on the probabilities
-    (`lmrl_gym_tpu/models/transformer.py:236-243`): scores q·kᵀ with f32
-    products and sums (`preferred_element_type=f32`: q and k upcast, which
-    is exact, and multiplied in f32), times 1/√Dh; causal and padding
-    masked entries set to f32's finfo.min; softmax in f32, cast to `dtype`;
-    `drop`; then P·V in `dtype`."""
+    """The JAX package's einsum attention (`lmrl_gym_tpu/models/
+    transformer.py:245-252`): scores q·kᵀ with f32 products and sums
+    (`preferred_element_type=f32`: q and k upcast, which is exact, and
+    multiplied in f32), times 1/√Dh; key j is visible to query t iff
+    j <= index + t with index = S - T (the reference's cache mask,
+    `:189-193`, over a cache's filled prefix; causal without a cache) and
+    the bias keeps it; hidden entries set to f32's finfo.min; softmax in
+    f32, cast to `dtype`; `drop` (training's probability dropout) if given;
+    then P·V in `dtype`.
+
+    Calls without `drop` add one to `attention_einsum.calls`: they are the
+    calls the kernels would otherwise take."""
+    if drop is None:
+        attention_einsum.calls += 1
     T, S = q.shape[2], k.shape[2]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    visible = torch.ones((T, S), dtype=torch.bool, device=q.device).tril()[None, None]
+    q_pos = S - T + torch.arange(T, device=q.device)
+    visible = (torch.arange(S, device=q.device)[None, :] <= q_pos[:, None])[None, None]
     if bias is not None:
         visible = visible & (bias == 0)[:, None, None, :]
     scores = scores.masked_fill(~visible, torch.finfo(torch.float32).min)
-    probs = drop(torch.softmax(scores, dim=-1).to(dtype))
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    if drop is not None:
+        probs = drop(probs)
     return torch.matmul(probs, v.to(dtype))
+
+
+attention_einsum.calls = 0  # calls without dropout (the route the kernels refuse, or the config turns off)
 
 
 def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -231,20 +254,26 @@ class Attention(nn.Module):
             k = apply_rotary(k, rope, cfg.rotary_interleaved)
 
         sm_scale = 1.0 / math.sqrt(Dh)
+        kernels = cfg.use_flash_attention and kernels_take(Dh, dtype)
         if ring is not None and layer_cache is None:
             out = ring(q, k, v, bias)
         elif layer_cache is None and attn_drop is not None:
-            out = attention_with_dropout(q, k, v, bias, sm_scale, dtype, attn_drop)
-        elif layer_cache is None:
+            out = attention_einsum(q, k, v, bias, sm_scale, dtype, drop=attn_drop)
+        elif layer_cache is None and kernels:
             out = flash_attention(q, k, v, bias, causal=True, sm_scale=sm_scale)
+        elif layer_cache is None:
+            out = attention_einsum(q, k, v, bias, sm_scale, dtype)
         else:
             ck, cv, index = layer_cache  # [B,H,T_max,Dh], written in place
             ck[:, :, index:index + T].copy_(k)
             cv[:, :, index:index + T].copy_(v)
-            if T == 1:
+            S = index + T
+            if not kernels:
+                out = attention_einsum(q, ck[:, :, :S], cv[:, :, :S], bias[:, :S] if bias is not None else None,
+                                       sm_scale, dtype)
+            elif T == 1:
                 out = decode_attention(q, ck, cv, index, bias, sm_scale)
             else:
-                S = index + T
                 out = flash_attention(
                     q, ck[:, :, :S], cv[:, :, :S],
                     bias[:, :S] if bias is not None else None,

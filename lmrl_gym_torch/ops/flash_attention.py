@@ -30,11 +30,18 @@ takes the f32 dialog gates' every prefill, train forward and score call
 (T = 256 to 768: bound by f32 FMA issue), gives each of 256 threads a 4×4
 micro-tile of scores from shared-memory tiles of Q and K (8 FMAs per
 16-byte shared load) behind a two-stage cp.async ring, 64 query rows per
-block; the "simt" backward streams tiles through shared memory in fp32.
-See the kernel sources for what each leaves on the table.
+block; the "simt" backward does the same for the f32 dialog gates' every
+train step (T = 256 to 768): 64 rows of a block stay in shared memory
+(queries for K2, keys for K3) while the other side streams through the
+ring, each thread holds 4×4 micro-tiles of S and dP, and the second
+products take the same row split. See the kernel sources for what each
+leaves on the table.
 
 Unlike the JAX package (which used the kernels only for T ≥ 1024 on a TPU),
-the port runs them for every attention with more than one query on CUDA:
+the port runs them for every attention with more than one query on CUDA
+whose head dim and dtype they take (`kernels_take`; the model sends the
+rest to its einsum attention, as the JAX model sends what `supports_flash`
+refuses):
 no-cache forwards (offset 0), cached prefills and appends over the filled
 cache prefix (offset = index), and, when q, k or v requires a gradient, the
 backward of every trained forward.
@@ -54,6 +61,15 @@ from lmrl_gym_torch.ops import _build
 _NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernels_take(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether K1-K4 take attention of this head dim and dtype: the port's
+    counterpart of the JAX package's `supports_flash` head-dim rule (Dh a
+    multiple of 8, at most 256), with the dtypes the kernels are built for
+    (f32, bf16). The model routes on it up front; the wrappers' own checks
+    still raise on anything else."""
+    return head_dim % 8 == 0 and head_dim <= 256 and dtype in _DTYPE_CODE
 
 
 def _plain_scores(q, k, bias, causal: bool, sm_scale: float):
@@ -166,8 +182,8 @@ def _variant(dtype: torch.dtype, head_dim: int, name: str) -> str:
 
 
 def _check_tc_alignment(**tensors):
-    """The tensor-core kernels and the CUDA-core forward copy rows in 16-byte
-    pieces: each input must start on 16 bytes, with batch, head and row
+    """Every variant of K1-K3 copies rows in 16-byte pieces: each input
+    and output must start on 16 bytes, with batch, head and row
     strides in multiples of 8 elements (views into a fused qkv projection
     are, for Dh % 8 == 0, and so are prefixes of a contiguous KV cache)."""
     for name, t in tensors.items():
@@ -192,8 +208,7 @@ def _launch(wrapper, name: str, pointers, strided: Dict[str, torch.Tensor], q, k
     B, H, Tq, Dh = q.shape
     S = k.shape[2]
     variant = _variant(q.dtype, Dh, name)
-    if variant == "tc" or name == "flash_fwd":  # the CUDA-core backward reads scalars
-        _check_tc_alignment(**strided)
+    _check_tc_alignment(**strided)
     head = (_DTYPE_CODE[q.dtype],) if variant == "simt" else ()
     rc = _kernel(name, variant)(
         *head, *(t.data_ptr() if t is not None else None for t in pointers), B, H, Tq, S, Dh,

@@ -1,5 +1,5 @@
 """Attention-probability dropout in training: the port's einsum route
-(`lmrl_gym_torch/models/transformer.py::attention_with_dropout`) against
+(`lmrl_gym_torch/models/transformer.py::attention_einsum`, with a `drop`) against
 the JAX package's (`lmrl_gym_tpu/models/transformer.py:236-243`).
 
 The JAX forward runs with `deterministic=False`, `attn_pdrop` 0.1 and 0.5

@@ -329,19 +329,34 @@ def _check_bwd_against_plain(B, H, Tq, S, Dh, dtype, padded, seed, tc: bool):
         assert _grad_excess(got, ref, dtype).max().item() <= GRAD_TOL[dtype][0]
 
 
-@pytest.mark.parametrize("variant", ["tc", "simt"])
+BWD_VARIANT_SHAPES = [
+    (4, 3, 100, 100, 64, True), (4, 3, 37, 100, 64, False), (2, 4, 160, 160, 128, True), (3, 2, 65, 65, 16, False),
+    (2, 2, 64, 64, 32, True), (2, 2, 129, 130, 48, True), (2, 2, 129, 130, 144, True), (2, 3, 37, 100, 256, False),
+    (2, 2, 200, 200, 256, True),
+]
+# the CUDA-core backward's tile edges (64-row blocks; 64-, 32- and 16-row
+# streamed tiles; K3's tiles start at the first query that sees a block's
+# first key), in f32: ragged T, Tq < S, Dh 48 and 144 zero-filled past Dh
+BWD_SIMT_EDGES = [
+    (2, 2, 63, 63, 64, True), (2, 2, 65, 65, 32, True), (2, 2, 129, 129, 64, False), (2, 2, 448, 448, 64, True),
+    (2, 2, 63, 130, 64, True), (2, 2, 100, 165, 48, False), (2, 2, 129, 129, 48, True), (2, 2, 65, 65, 144, True),
+    (2, 2, 37, 100, 144, False), (2, 2, 129, 200, 256, True),
+]
+
+
 @pytest.mark.parametrize(
-    "B,H,Tq,S,Dh,padded",
-    [(4, 3, 100, 100, 64, True), (4, 3, 37, 100, 64, False), (2, 4, 160, 160, 128, True), (3, 2, 65, 65, 16, False),
-     (2, 2, 64, 64, 32, True), (2, 2, 129, 130, 48, True), (2, 2, 129, 130, 144, True), (2, 3, 37, 100, 256, False),
-     (2, 2, 200, 200, 256, True)],
+    "variant,dtype,B,H,Tq,S,Dh,padded",
+    [(var, torch.bfloat16, *shape) for var in ("tc", "simt") for shape in BWD_VARIANT_SHAPES]
+    + [("simt", torch.float32, *shape) for shape in BWD_VARIANT_SHAPES + BWD_SIMT_EDGES],
 )
-def test_flash_bwd_variants_match_plain(cuda, monkeypatch, variant, B, H, Tq, S, Dh, padded):
+def test_flash_bwd_variants_match_plain(cuda, monkeypatch, variant, dtype, B, H, Tq, S, Dh, padded):
     """Each backward variant, forced, in bf16: ragged T (not a multiple of
     the 64-row tile), right-aligned queries, Dh from 16 to 256 (144: the
-    wide kernels zero-filling past Dh)."""
+    wide kernels zero-filling past Dh); and the CUDA-core variant in f32 at
+    those shapes and at its own tile edges (T = 63, 65, 129, 448, Tq < S,
+    Dh 48 and 144)."""
     monkeypatch.setattr(tfa, "_variant", lambda dtype, head_dim, name: variant)
-    _check_bwd_against_plain(B, H, Tq, S, Dh, torch.bfloat16, padded, seed=Tq + Dh, tc=variant == "tc")
+    _check_bwd_against_plain(B, H, Tq, S, Dh, dtype, padded, seed=Tq + Dh, tc=variant == "tc")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -469,6 +484,44 @@ def test_model_on_card_matches_cpu(cuda, variant):
             assert (outs[0] - outs[1]).abs()[real].max().item() <= 1e-4
     assert tfa.flash_fwd.launches - flash0 == cfg.num_layers
     assert tda.decode_attention.launches - decode0 == 3 * cfg.num_layers
+
+
+@pytest.mark.parametrize("variant,tol", [(dict(hidden_size=56, num_heads=2), 1e-4), (dict(use_flash_attention=False), 1e-4),
+                                         (dict(dtype="float16"), 2e-2)], ids=["dh28", "flash_off", "float16"])
+def test_einsum_route_on_card_matches_cpu(cuda, variant, tol):
+    """Configs the kernels refuse (Dh = 28, float16) or switch off: every
+    attention call of `Transformer.forward` on the card takes the einsum
+    route (`attention_einsum.calls` moves by L a call, no K1 or K4 launch)
+    and matches the CPU's f32 logits at real positions (float16 within
+    2e-2, its ~3 decimal digits over 2 layers)."""
+    from lmrl_gym_torch.models import transformer as tmod
+
+    cfg = tiny_test_config(**variant)
+    gpu = Transformer(cfg, device="cuda")
+    cpu = Transformer(cfg.replace(dtype="float32"), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    B, T_max = 3, 24
+    ids = torch.randint(0, 256, (B, 12), generator=torch.Generator().manual_seed(0))
+    mask = torch.zeros(B, T_max, dtype=torch.int32)
+    mask[:, :12] = (torch.arange(12)[None, :] >= torch.tensor([0, 2, 5])[:, None]).int()
+    mask[:, 12:15] = 1
+    pos = (mask.cumsum(1) - 1).clamp(min=0)
+    caches = [KVCache.init(cfg, B, T_max, device="cuda"), KVCache.init(cpu.config, B, T_max, device="cpu")]
+    flash0, decode0, einsum0 = tfa.flash_fwd.launches, tda.decode_attention.launches, tmod.attention_einsum.calls
+    with torch.no_grad():
+        for start, T in ((0, 12), (12, 1), (13, 1), (14, 1)):
+            step_ids = ids[:, start:start + T] if start < 12 else torch.full((B, 1), 97)
+            outs = []
+            for i, (model, d) in enumerate(((gpu, "cuda"), (cpu, "cpu"))):
+                logits, _, caches[i] = model(
+                    step_ids.to(d), attention_mask=mask.to(d), position_ids=pos[:, start:start + T].to(d), cache=caches[i]
+                )
+                outs.append(logits.float().cpu())
+            real = mask[:, start:start + T].bool()
+            assert ((outs[0] - outs[1]).abs() - tol * outs[1].abs())[real].max().item() <= tol
+    assert (tfa.flash_fwd.launches - flash0, tda.decode_attention.launches - decode0) == (0, 0)
+    cpu_einsum = not (cfg.use_flash_attention and tfa.kernels_take(cfg.head_dim, torch.float32))  # the CPU runs f32
+    assert tmod.attention_einsum.calls - einsum0 == 4 * cfg.num_layers * (1 + cpu_einsum)
 
 
 def test_value_guided_rollout_on_card_matches_cpu(cuda):

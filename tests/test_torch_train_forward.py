@@ -74,20 +74,20 @@ def test_trunk_dropout_follows_the_generator():
 
 def test_attention_dropout_in_training_is_refused():
     """(Its name kept from when the port refused this dropout.) Training
-    with attn_pdrop > 0 takes the einsum route, `attention_with_dropout`,
-    drawing its masks from the generator; inference ignores the rate."""
+    with attn_pdrop > 0 takes the einsum route, `attention_einsum` with a
+    `drop`, drawing its masks from the generator; inference ignores the rate."""
     model = Transformer(ttiny(attn_pdrop=0.1), device="cpu")
     ids = torch.from_numpy(_ids()).long()
     with pytest.raises(ValueError, match="generator"):
         model(ids, deterministic=False)
     routes = []
-    orig = tmod.attention_with_dropout
+    orig = tmod.attention_einsum
 
     def spy(*a, **kw):
         routes.append(1)
         return orig(*a, **kw)
 
-    tmod.attention_with_dropout = spy
+    tmod.attention_einsum = spy
     try:
         a = model(ids, deterministic=False, generator=torch.Generator().manual_seed(0))[0]
         b = model(ids, deterministic=False, generator=torch.Generator().manual_seed(0))[0]
@@ -96,7 +96,7 @@ def test_attention_dropout_in_training_is_refused():
         ref = model(ids)[0]  # inference ignores every dropout rate
         assert len(routes) == 3 * model.config.num_layers
     finally:
-        tmod.attention_with_dropout = orig
+        tmod.attention_einsum = orig
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert not torch.allclose(a, c) and not torch.allclose(a, ref)
     torch.testing.assert_close(model(ids, deterministic=True, generator=torch.Generator())[0], ref, rtol=0, atol=0)
