@@ -74,14 +74,27 @@ Phases, each of which exits non-zero on failure:
    checked, and one more under torch.profiler for the
    device busy time, idle share and device time by kernel category; then
    `ValueGuidedServer.generate_from_strs` answers 4 left-padded prompts;
+3b. the port's measurement scripts (`lmrl_gym_torch/scripts/{bench,
+   profile_ilql,scaling}.py`): `bench.main` over all six sections at their
+   operating points (BENCH_REPS=3 timed reps each; 3b's comment lists the
+   cuts), every call's launches checked (each ILQL step 3L / L / L, each
+   Wordle rollout 7L K1 and 60L K4, each Markov rollout 8L K1 and
+   8·ACT_LEN·L K4, all on the tensor cores and none on K4's split route;
+   bench_env none), each section's numbers on a line of their own;
+   `profile_ilql.main` at its defaults (counted FLOPs and MFU, a profiled
+   step by category) with its steps' launches checked, and its
+   `counted_flops` on the card equal to the CPU's at the same config
+   (B=2, T=32; the CPU's counted in a process started after phase 1);
+   scaling's rows run in 3x;
 3t. training at full width, at `bench.py::bench_ilql_real_vocab`'s
    operating point: the ILQL train step on GPT-2-small (f32 parameters,
    bf16 activations), twin MLP Q heads (hidden 1536, out 50,304) and a V
-   head, a separate target base, AdamW, B=32, T=160, next window 16 — one
-   warm-up and five timed steps, each with its launch counts (36 flash_fwd,
-   12 flash_bwd_dq, 12 flash_bwd_dkv, every launch the tensor-core
-   variant) and a finite loss checked, then one more under
-   torch.profiler; then three BC steps on the same trunk (12/12/12
+   head, a separate target base, AdamW, B=32, T=160, next window 16, on
+   the JAX bench's batch — timed by 3b's `bench_ilql_real_vocab` (its
+   warm-up and three timed steps, each with its launch counts (36
+   flash_fwd, 12 flash_bwd_dq, 12 flash_bwd_dkv, every launch the
+   tensor-core variant) and a finite loss checked there) and profiled by
+   3b's `profile_ilql`; then three BC steps on the same trunk (12/12/12
    launches, the same check);
 3o. on-device online ILQL at full width (`loops/online_device.py::
    online_ilql_wordle`): GPT-2-small with f32 parameters and bf16
@@ -151,15 +164,15 @@ Phases, each of which exits non-zero on failure:
    moves): launch counts exactly the budget's
    (per `LMServer` call, BC and PPO step, PPO forward call) and every
    return inside its env's range;
-3k. the Markov actors at `bench.py::bench_actor_markov`'s point:
-   GPT-2-small over a 512-token vocab, bf16 weights from a seed,
-   `rollout_markov` through `make_lm_step_fn`, B=512, 8 turns, on the maze
-   (double_t_maze, 8 moves) and KQ-K chess (FEN, 8 moves): one warm-up and
-   one timed rollout each with exact launches (K1 8 x 12 = 96; K4
-   8 x 11 x 12 = 1,056 maze, 8 x 8 x 12 = 768 chess), turns that never come
-   back to life, rewards in {0, -1, -4} / {1, 0, -1} and every chess
-   frame's FEN valid for the port's engine, env-steps/s, one rollout each
-   profiled;
+3k. (run in 3b) the Markov actors at `bench.py::bench_actor_markov`'s
+   point, 3b's `bench_actor_markov`: GPT-2-small over a 512-token vocab,
+   bf16 weights from a seed, `rollout_markov` through `make_lm_step_fn`,
+   B=512, 8 turns, on the maze (double_t_maze, 8 moves) and KQ-K chess
+   (FEN, 8 moves): one warm-up and three timed rollouts each with exact
+   launches (K1 8 x 12 = 96; K4 8 x 11 x 12 = 1,056 maze, 8 x 8 x 12 = 768
+   chess), turns that never come back to life, rewards in {0, -1, -4} /
+   {1, 0, -1} and every chess frame's FEN valid for the port's engine,
+   env-steps/s, one more rollout each profiled;
 3u. `online_ilql_markov` on chess at full width (f32 parameters, bf16
    activations, twin MLP Q heads and a V head, a separate target base, a
    frozen pi_beta), two rounds of a B=256 rollout and B=64 steps: per
@@ -215,14 +228,18 @@ Phases, each of which exits non-zero on failure:
    to bit-identical logits; one attention-dropout training forward (f32,
    B=16, T=160, keep masks replayed) on the card against the CPU;
 3x. the sharded code in a one-rank NCCL group (slice 11): phase 3t's ILQL
-   step through `load_mesh((1, 1, 1))` and `shard_train_state` (FSDP2 on
-   all seven modules) beside the unsharded step from the same weights and
-   batch, launches exact (36 / 12 / 12, tensor cores), the largest loss
+   step built by the port's scaling script (`scaling._make_ilql_setup`:
+   `load_mesh((1, 1, 1))`, FSDP2 on all seven modules by their rule
+   tables) beside the unsharded step from the same weights and batch, launches exact (36 / 12 / 12, tensor cores), the largest loss
    and parameter difference printed (held to 1e-6), both steps' times and
    device busy time, the sharded step's NCCL kernels and FSDP2 events; the
    V head's sharded train-state write byte-identical to the unsharded
    write and its stream-sharded read; ring attention over a one-rank sp
-   mesh at the Text-Nav windows' shapes against K1 (`phase_sharded`);
+   mesh at the Text-Nav windows' shapes against K1 (`phase_sharded`); then
+   the port's `scaling.main` rows in the same group (`_scaling_rows`): the
+   n = 1 rows measured (env and ILQL weak scaling, fixed total work, the
+   (1, 1, 1) collective census, empty), each step's launches checked, every
+   n > 1 row marked not run on one card;
 3j. GPT-J-6B's value-guided serving at full width and depth (slice 12;
    `gptj_6b`: vocab 50,400 padded to 50,432, 28 layers, d 4096, 16 heads
    of 256, rotary_dim 64 interleaved, parallel FFN, untied lm_head; bf16
@@ -301,6 +318,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -342,10 +360,9 @@ from lmrl_gym_torch.core.optimizer import TrainState, adamw, set_to_zero, value_
 from lmrl_gym_torch.envs import lm_oracle
 from lmrl_gym_torch.envs.base import text_env_eval
 from lmrl_gym_torch.envs.chess import engine as chess_engine
-from lmrl_gym_torch.envs.chess.vector import ChessEndgameVectorEnv
 from lmrl_gym_torch.envs.maze.eval import per_cell_optimal_move_accuracy
-from lmrl_gym_torch.envs.maze.grids import ACTION_STRS, DOUBLE_T_GOAL, double_t_maze
-from lmrl_gym_torch.envs.maze.vector import MazeTokenVecEnv, MazeVectorEnv
+from lmrl_gym_torch.envs.maze.grids import ACTION_STRS, double_t_maze
+from lmrl_gym_torch.envs.maze.vector import MazeTokenVecEnv
 from lmrl_gym_torch.envs.text_nav.env import TextNavEnv, WalkthroughAgent
 from lmrl_gym_torch.envs.wordle.env import ReformatWordleEnv, WordleEnv
 from lmrl_gym_torch.envs.wordle.vector import N_TRIES, WordleVectorEnv, WordleVocab
@@ -390,9 +407,20 @@ from lmrl_gym_torch.scripts import (
     dialog_ilql_gate,
     maze_ilql_gate,
     maze_ppo_gate,
+    profile_ilql,
+    scaling,
     text_nav_ppo_gate,
     twenty_questions_gate,
     wordle_ilql_gate,
+)
+from lmrl_gym_torch.scripts import bench as port_bench
+from lmrl_gym_torch.scripts.bench import PEAK_FLOPS, ilql_update_flops
+from lmrl_gym_torch.scripts.profile_ilql import (
+    PROFILER_TRIES,
+    _kernel_category,
+    bwd_work,
+    device_kernel_times,
+    flash_work,
 )
 from lmrl_gym_torch.text.frames import (
     Text,
@@ -404,9 +432,9 @@ from lmrl_gym_torch.text.frames import (
 from lmrl_gym_torch.text.bpe import train_bpe_for_task
 from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
+# H100 SXM published HBM rate (NVIDIA data sheet, at the 700 W limit); the
+# dense peaks are the port bench's PEAK_FLOPS
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 B, H, DH, T_MAX = 512, 12, 64, actor.EPISODE_LEN
 GPTJ_H, GPTJ_DH = 16, 256  # GPT-J-6B's heads and head width (phases 2j, 3j)
@@ -423,10 +451,8 @@ LOGIT_TOL = 0.1
 ROLLOUT_REPS = 1  # timed rollouts; the median is reported beside min and max
 ONLINE_ROUNDS = 2  # 3o's rounds (the config's default is 4)
 SPIN_CYCLES = 10_000_000  # cuda_ms's head start for the host: ~5 ms at the H100's 1.98 GHz boost
-PROFILER_TRIES = 3  # torch.profiler now and then records no device event on the card's machine
 # training: bench.py::bench_ilql_real_vocab's operating point
 TRAIN_B, TRAIN_T, NEXT_T = 32, 160, 16
-TRAIN_REPS = 3
 PAD_ID = 50256  # as bench.py passes it (no batch token is a pad)
 # card vs CPU ILQL step in f32 at full width: TF32 is off, so only the
 # summation order differs (~1e-6 relative per op)
@@ -501,35 +527,12 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def flash_work(b: int, h: int, dh: int, Tq: int, S: int, dtype) -> tuple:
-    """Bytes (each input read once, each output written once) and FLOPs of
-    one causal flash forward of shape (b, h, Tq, S, dh) without bias: QKᵀ
-    and PV over the visible (query, key) pairs."""
-    es = torch.finfo(dtype).bits // 8
-    n_bytes = es * b * h * dh * (2 * Tq + 2 * S) + 4 * b * h * Tq
-    pairs = sum(S - Tq + i + 1 for i in range(Tq))
-    return n_bytes, 4.0 * b * h * dh * pairs
-
-
 def decode_work(b: int, h: int, dh: int, n_keys: int, dtype) -> tuple:
     """Bytes and FLOPs of one decode step of shape (b, h, dh) over n_keys
     cache slots, no bias."""
     es = torch.finfo(dtype).bits // 8
     n_bytes = es * b * h * dh * (2 + 2 * n_keys)
     return n_bytes, 4.0 * b * h * dh * n_keys
-
-
-def bwd_work(b: int, h: int, dh: int, Tq: int, S: int, dtype, kernel: str, with_bias: bool) -> tuple:
-    """Bytes and FLOPs of one backward kernel over the causal (query, key)
-    pairs. Both read q, k, v, dO, lse and Δ (and the bias when given); K2
-    writes dQ and does QKᵀ, dO·Vᵀ and dS·K (6·Dh FLOPs per pair), K3 writes
-    dK and dV and adds Pᵀ·dO and dSᵀ·Q (8·Dh per pair)."""
-    es = torch.finfo(dtype).bits // 8
-    n_q, n_kv = b * h * Tq * dh, b * h * S * dh
-    n_bytes = es * (2 * n_q + 2 * n_kv) + 4 * 2 * b * h * Tq + (4 * b * S if with_bias else 0)
-    n_bytes += es * (n_q if kernel == "dq" else 2 * n_kv)
-    pairs = b * h * sum(S - Tq + i + 1 for i in range(Tq))
-    return n_bytes, (6.0 if kernel == "dq" else 8.0) * dh * pairs
 
 
 @contextlib.contextmanager
@@ -1194,38 +1197,6 @@ def _check_rollout(out, env, batch: int = B, constrained: bool = True) -> None:
             check(word in words, f"turn {t} row {b}: constrained guess {word!r} is not a vocab word")
 
 
-def _kernel_category(name: str) -> str:
-    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attn"):
-        if f"{kernel}_tc_" in name:  # flash_*_tc_kernel and flash_*_tc_wide_kernel
-            return f"{kernel} (tensor cores)"
-        if f"{kernel}_kernel" in name or f"{kernel}_wide_kernel" in name:
-            return kernel
-    low = name.lower()
-    if "multi_tensor_apply" in low:
-        return "optimizer (foreach)"
-    if "gemm" in low or "nvjet" in low or "cutlass" in low or "xmma" in low:
-        return "gemm f32" if "f32f32" in low or "sgemm" in low else "gemm bf16"
-    if "elementwise" in low or "vectorized" in low:
-        return "elementwise"
-    if "reduce" in low:
-        return "reduce"
-    return "other"
-
-
-def device_kernel_times(prof) -> dict:
-    """{kernel name: (device ms, launches)} of a finished torch.profiler
-    run, summed straight from its raw events: building the profiler's
-    own FunctionEvents (`key_averages`) took ~180 µs per kernel on the
-    H100's host, 21 s for one GPT-J rollout's 117,000 kernels, for the same
-    sums."""
-    out: dict = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            ms, n = out.get(e.name(), (0.0, 0))
-            out[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
-    return out
-
-
 def profile_run(label: str, run, unprofiled_s: float) -> None:
     """One more run (a rollout, a train step) under torch.profiler: device
     busy time (one stream, so the sum of kernel times) against the wall
@@ -1594,73 +1565,211 @@ def _train_modules(config, device, seed=0, layer2_initializer_range=0.0):
             MLPHead(q_cfg, device=device, seed=seed + 2), MLPHead(v_cfg, device=device, seed=seed + 3))
 
 
-def _n_params(module) -> int:
-    return sum(p.numel() for p in module.parameters())
+# 3b: the port's measurement scripts. bench.main's timed reps per section
+# (BENCH_REPS) cut to 3 from bench.py's 20 (bench_ilql), 5 (bench_actor),
+# 10 (bench_ilql_real_vocab) and 20 (bench_env); bench_actor_real_vocab and
+# bench_actor_markov keep their 3. Their numbers at the full reps come from
+# `python -m lmrl_gym_torch.scripts.bench` (PERF.md)
+BENCH_REPS = 3
+COUNTED_B, COUNTED_T = 2, 32  # counted_flops on the card against the CPU: profile_ilql's config, a batch the CPU steps in seconds
 
 
-def ilql_update_flops(config, n_base: int, n_head: int, n_v: int) -> float:
-    """One ILQL update's FLOPs as bench.py counts them (bench.py:319-337):
-    the trained trunk forward+backward, the target and next-window trunk
-    forwards, forward+backward of q1/q2/v, the target heads' forwards and
-    the attention products."""
-    L, Hh, Dh = config.num_layers, config.num_heads, config.head_dim
-    tok_main, tok_next = TRAIN_B * TRAIN_T, TRAIN_B * NEXT_T
-    attn_fwd = 4 * L * Hh * Dh * TRAIN_T * tok_main
-    return (tok_main * 6 * n_base + tok_main * 2 * n_base + tok_next * 2 * n_base
-            + tok_main * (2 * 6 * n_head + 6 * n_v) + tok_main * 2 * 2 * n_head + 3 * attn_fwd)
+@contextlib.contextmanager
+def recorded_scripts(record: dict, sections: dict):
+    """Wraps what the port's bench, profile and scaling scripts call, so each
+    call records its launch counts (set to 0 just before it, read just
+    after it, with no synchronization added) under the running section:
+    record[section] is a list of {kind, counts, result, args, L}. The
+    sections are bench's (`port_bench.<name>`, as `main` looks them up),
+    each timed and its launches counted whole into sections[name]; the
+    calls are the ILQL train steps `make_ilql_train_step` makes,
+    `actor.rollout_wordle` and `actor.rollout_markov`."""
+    from lmrl_gym_torch.algos import ilql as ilql_module
+
+    current = ["(outside a bench section)"]
+    saved = []
+
+    def patch(module, name, wrapper):
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, wrapper(getattr(module, name)))
+
+    def call(kind, fn, layers):
+        def wrapped(*args, **kw):
+            _reset_counts()
+            out = fn(*args, **kw)
+            record.setdefault(current[0], []).append(dict(kind=kind, counts=_all_counts(), result=out, args=args,
+                                                          L=layers(args)))
+            return out
+        return wrapped
+
+    def make_step(make):
+        def wrapped(core, *args, **kw):
+            return call("ilql_step", make(core, *args, **kw), lambda _: core.config.num_layers)
+        return wrapped
+
+    def section(name):
+        def wrap(fn):
+            def wrapped(**kw):
+                current[0] = name
+                _reset_counts()
+                t0 = time.perf_counter()
+                out = fn(**kw)
+                sections[name] = dict(result=out, s=time.perf_counter() - t0, counts=_all_counts())
+                current[0] = "(outside a bench section)"
+                return out
+            return wrapped
+        return wrap
+
+    try:
+        patch(ilql_module, "make_ilql_train_step", make_step)
+        patch(actor, "rollout_wordle", lambda fn: call("rollout_wordle", fn, lambda a: a[2].config.num_layers))
+        patch(actor, "rollout_markov", lambda fn: call("rollout_markov", fn, lambda a: a[3].config.num_layers))
+        for name in port_bench.MODES["all"]:
+            patch(port_bench, name, section(name))
+        yield current
+    finally:
+        for module, name, fn in reversed(saved):
+            setattr(module, name, fn)
 
 
-def phase_train(config) -> dict:
-    """The ILQL train step at bench.py::bench_ilql_real_vocab's operating
-    point, then three BC steps on the same trunk."""
-    L = config.num_layers
-    want = (3 * L, L, L)  # trained, target and next-window trunk forwards; one backward
-    core = LMCore(config)
-    t0 = time.perf_counter()
-    base, q1, q2, v = _train_modules(config, "cuda")
-    ilql_config = ILQLConfig()
-    state = init_ilql_state(base, q1, q2, v, adamw(1e-4), adamw(1e-3), ilql_config)
-    step = make_ilql_train_step(core, ilql_config, PAD_ID)
-    batch = _train_batch()
-    torch.cuda.synchronize()
-    log(f"train setup (gpt2-small f32 params, bf16 activations, separate target base, twin MLP Q heads + V head, "
-        f"B={TRAIN_B} T={TRAIN_T} next={NEXT_T}): {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    state, loss, _ = step(state, batch)
-    check(bool(torch.isfinite(loss)), f"warm-up ILQL loss {loss.item()}")
-    log(f"warm-up ILQL step: {time.perf_counter() - t0:.3f} s, loss {loss.item():.4f}")
+def _check_steps(label: str, calls: list) -> None:
+    """Every recorded ILQL step: 3L / L / L launches, all on the tensor
+    cores, and a finite loss."""
+    check(calls and all(c["kind"] == "ilql_step" for c in calls), f"{label}: no ILQL steps recorded")
+    for i, c in enumerate(calls):
+        want = _want(c["L"], fwd=3, bwd=1)
+        check(c["counts"] == want, f"{label} step {i}: {_fmt_counts(c['counts'])}, want {want}")
+    losses = torch.stack([c["result"][1] for c in calls]).cpu()
+    check(bool(torch.isfinite(losses).all()), f"{label}: losses {losses.tolist()}")
 
-    torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
-    t_all = time.perf_counter()
-    for _ in range(TRAIN_REPS):
-        _reset_counts()
+
+def start_cpu_count() -> subprocess.Popen:
+    """`counted_flops` on the CPU at profile_ilql's config (B=COUNTED_B,
+    T=COUNTED_T), in a process of its own: the CPU's full-width ILQL state
+    and step take seconds, spent beside phase 2's kernel checks. Its
+    stdout's last line is the count; `phase_bench` reads it."""
+    code = ("import json, torch\n"
+            "torch.set_num_threads(4)\n"
+            "from lmrl_gym_torch.scripts import profile_ilql as p\n"
+            "c = p.profile_config(50257)\n"
+            f"state, step, batch = p.build_step(50257, {COUNTED_B}, {COUNTED_T}, 'cpu')\n"
+            "print(json.dumps(p.counted_flops(step, state, batch, c)))\n")
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def phase_bench(cpu_count: subprocess.Popen, device="cuda") -> dict:
+    """Phase 3b: the port's measurement scripts on the card. `bench.main`
+    over all six sections (BENCH_REPS timed reps each), every call's
+    launches checked (each ILQL step 3L / L / L on the tensor cores; each
+    Wordle rollout 7L K1 and 60L K4, no split route; each Markov rollout 8L
+    K1 and 8·ACT_LEN·L K4, and its invariants; bench_env none) and each
+    section's numbers on a line of their own. 3k's Markov rollouts are
+    bench_actor_markov's (one of each profiled after it), and 3t's timed
+    ILQL steps are bench_ilql_real_vocab's. Then `profile_ilql.main` at its
+    defaults (its steps' launches checked the same way), `counted_flops`
+    on the card against the CPU's (`start_cpu_count`) at the profile's
+    config (B=COUNTED_B, T=COUNTED_T). `scaling.main`'s rows run in phase
+    3x's group (`_scaling_rows`)."""
+    record, sections, out = {}, {}, {}
+    with recorded_scripts(record, sections) as current, mock.patch.dict(os.environ, BENCH_REPS=str(BENCH_REPS)):
         t0 = time.perf_counter()
-        state, loss, logs = step(state, batch)
-        # host time of the call: the host blocks once CUDA's launch queue is
-        # full, so a value near the step time means the device sets the pace
-        times.append(time.perf_counter() - t0)
-        counts = _train_counts()
-        check(counts == want, f"ILQL step launched flash_fwd/bwd_dq/bwd_dkv {counts}, want {want}")
-        check(_tc_counts() == (L, L), f"ILQL step: tensor-core backward launches {_tc_counts()}, want {(L, L)}")
-        check(flash_fwd.tc_launches == 3 * L, f"ILQL step: tensor-core forward launches {flash_fwd.tc_launches}, want {3 * L}")
-        step_counts = counts + _tc_counts() + (flash_fwd.tc_launches,)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t_all
-    losses = torch.stack(losses).cpu()
-    check(bool(torch.isfinite(losses).all()), f"ILQL losses {losses.tolist()}")
-    flops = ilql_update_flops(config, _n_params(base), _n_params(q1), _n_params(v))
-    ups = TRAIN_REPS / dt
-    log(f"ILQL train: {TRAIN_REPS} steps in {dt:.4f} s: updates_per_s={ups:.3f} tokens_per_s={ups * TRAIN_B * TRAIN_T:.1f} "
-        f"mfu={flops * ups / PEAK_FLOPS[torch.bfloat16]:.4f} (bench.py's count {flops / 1e12:.3f} TFLOP per update "
-        f"over 989 TF/s) peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
-        f"host_ms_per_step_call={1e3 * sum(times) / len(times):.1f}; launches per step {want}, "
-        f"tensor-core backward {step_counts[3:5]}, forward {step_counts[5]}; "
-        f"losses {[round(x, 4) for x in losses.tolist()]}; last logs q1_loss={logs['losses']['q1_loss'].item():.4f} "
-        f"v_loss={logs['losses']['v_loss'].item():.4f} q1_cql={logs['losses']['q1_cql_loss'].item():.4f}")
-    profile_run("train step", lambda: step(state, batch), dt / TRAIN_REPS)
+        result = port_bench.main(["--device", device])
+        log(f"3b bench.main (all six sections, BENCH_REPS={BENCH_REPS}): {time.perf_counter() - t0:.1f} s")
+        current[0] = "profile_ilql"
+        t0 = time.perf_counter()
+        profile = profile_ilql.main(["--device", device])
+        log(f"3b profile_ilql.main: {time.perf_counter() - t0:.1f} s")
+    check(set(sections) == set(port_bench.MODES["all"]) and result == {k: v for sec in sections.values()
+                                                                           for k, v in sec["result"].items()},
+          f"3b: bench ran {sorted(sections)}")
+    for name in port_bench.MODES["all"]:
+        calls, sec = record.get(name, []), sections[name]
+        if name.startswith("bench_ilql"):
+            _check_steps(name, calls)
+            check(len(calls) == 1 + BENCH_REPS, f"{name}: {len(calls)} steps")
+        elif name == "bench_env":
+            check(not calls and sec["counts"] == (0,) * len(COUNT_NAMES), f"bench_env: {_fmt_counts(sec['counts'])}")
+        else:
+            per_env = 2 if name == "bench_actor_markov" else 1
+            check(len(calls) == per_env * (1 + BENCH_REPS), f"{name}: {len(calls)} rollouts")
+            for i, c in enumerate(calls):
+                env = c["args"][0]
+                if name == "bench_actor_markov":
+                    ro, env_name = c["result"][0], ("maze" if isinstance(env, MazeTokenVecEnv) else "chess")
+                    want = _want(c["L"], fwd=port_bench.MARKOV_TURNS, dec=port_bench.MARKOV_TURNS * env.ACT_LEN)
+                    _check_markov_rollout(ro, env_name, env, ro.turn_live.shape[0], port_bench.MARKOV_TURNS)
+                else:
+                    want = _want(c["L"], fwd=7, dec=60)
+                    _check_rollout(c["result"], env, c["result"].tokens.shape[0], constrained=False)
+                check(c["counts"] == want and c["counts"].split == 0,
+                      f"{name} rollout {i}: {_fmt_counts(c['counts'])} split {c['counts'].split}, want {want}")
+        per_call = f"; launches per call {_fmt_counts(calls[-1]['counts'])}" if calls else ""
+        log(f"bench {name} (3b): {json.dumps(sec['result'])} in {sec['s']:.1f} s{per_call}")
 
+    # 3k: the Markov rollouts are bench_actor_markov's: per env, its timed
+    # rollouts' launches and one more rollout profiled
+    markov = record["bench_actor_markov"]
+    for k, env_name in enumerate(("maze", "chess")):
+        calls = markov[k * (1 + BENCH_REPS): (k + 1) * (1 + BENCH_REPS)]
+        env = calls[0]["args"][0]
+        check(isinstance(env, MazeTokenVecEnv) == (env_name == "maze"), "3k: the rollouts' envs out of order")
+        steps_per_s = sections["bench_actor_markov"]["result"][f"fused_{env_name}_actor_env_steps_per_s_per_chip"]
+        dt = calls[-1]["result"][0].turn_live.shape[0] * port_bench.MARKOV_TURNS / steps_per_s
+        log(f"markov rollout (3k) {env_name}: bench_actor_markov's {BENCH_REPS} timed rollouts, "
+            f"env_steps_per_s={steps_per_s:.1f} ({dt:.4f} s a rollout); {_fmt_counts(calls[-1]['counts'])}")
+        args = calls[-1]["args"]
+        if device == "cuda":
+            profile_run(f"markov rollout {env_name}", lambda: actor.rollout_markov(*args, generator=torch.Generator(
+                device=device).manual_seed(1)), dt)
+        out.update(_path_counts(f"markov_{env_name}", calls[-1]["counts"]))
+        out[f"markov_{env_name}_s"] = dt
+
+    _check_steps("profile_ilql", record["profile_ilql"])
+    p = profile["profile"]
+    log(f"profile_ilql (3b): {profile['model']} step_wall_ms={profile['step_wall_ms']} "
+        f"updates_per_s={profile['updates_per_s']} counted_flops={profile['counted_flops']} "
+        f"counted_mfu_pct={profile['counted_mfu_pct']} profile " + (json.dumps(
+            {k: v for k, v in p.items() if k != "top10_ops_ms"}) if isinstance(p, dict) else p))
+    config = profile_ilql.profile_config(50257)
+    state, step, batch = profile_ilql.build_step(50257, COUNTED_B, COUNTED_T, device)
+    card = profile_ilql.counted_flops(step, state, batch, config)
+    del state, step, batch
+    try:
+        stdout, stderr = cpu_count.communicate(timeout=300)
+    finally:
+        cpu_count.kill()
+    check(cpu_count.returncode == 0, f"counted_flops on the CPU failed: {stderr[-2000:]}")
+    cpu = json.loads(stdout.strip().splitlines()[-1])
+    log(f"counted_flops (3b) at {profile['model'].split(' B')[0]} B={COUNTED_B} T={COUNTED_T}: {device} {card}, "
+        f"cpu {cpu}")
+    check(card == cpu, f"counted_flops: {device} {card} against the CPU's {cpu}")
+
+    real = record["bench_ilql_real_vocab"]
+    out.update(train_steps=real, train_result=sections["bench_ilql_real_vocab"]["result"])
+    return out
+
+
+def phase_train(config, steps: list, bench_result: dict) -> dict:
+    """Phase 3t: the ILQL train step at bench.py::bench_ilql_real_vocab's
+    operating point, timed by the port bench's section in 3b (`steps`:
+    its warm-up and timed steps, each with its launches checked there;
+    the step profiled by profile_ilql in 3b), then three BC steps on the
+    same trunk."""
+    L = config.num_layers
+    state, batch = steps[-1]["result"][0], steps[-1]["args"][1]
+    c = steps[-1]["counts"]
+    step_counts = (c[0], c[3], c[5], c[4], c[6], c[1])  # K1, K2, K3, then K2, K3 and K1 on the tensor cores
+    losses = [round(float(s["result"][1]), 4) for s in steps]
+    flops = ilql_update_flops(config, TRAIN_B, TRAIN_T, NEXT_T, port_bench.n_params(state.base.params),
+                              port_bench.n_params(state.q1_head.params), port_bench.n_params(state.v_head.params))
+    ups = bench_result["ilql_updates_per_s_vocab50257"]
+    log(f"ILQL train (3t; bench_ilql_real_vocab's {len(steps) - 1} timed steps in 3b): updates_per_s={ups:.3f} "
+        f"tokens_per_s={bench_result['ilql_tokens_per_s_vocab50257']:.1f} "
+        f"mfu={flops * ups / PEAK_FLOPS[torch.bfloat16]:.4f} (bench.py's count {flops / 1e12:.3f} TFLOP per update "
+        f"over 989 TF/s); launches per step {_fmt_counts(c)}; losses {losses}")
+
+    core = LMCore(config)
     bc_state = BCTrainState(TrainState(state.base.params, adamw(1e-4)))
     bc_step = make_bc_train_step(core, BCConfig(), PAD_ID)
     training_mask = torch.zeros(TRAIN_B, TRAIN_T, dtype=torch.int32, device="cuda")
@@ -2413,7 +2522,7 @@ def phase_ppo_gates(device="cuda", extra=()) -> dict:
 
 # ---------------- slice 8: the Markov actors, online Markov ILQL, the chess gate ----------------
 
-MARKOV_B, MARKOV_TURNS, MARKOV_REPS = 512, 8, 1  # bench.py::bench_actor_markov's operating point
+MARKOV_TURNS = port_bench.MARKOV_TURNS  # bench.py::bench_actor_markov's turns
 MARKOV_PROFILED_STEPS = 2  # 3u: train steps under the profiler
 MARKOV_VOCAB = 512
 MAZE_REWARDS, CHESS_REWARDS = {0.0, -1.0, -4.0}, {1.0, 0.0, -1.0}
@@ -2423,14 +2532,7 @@ CHESS_GATE_ARGS = ["--train-pool", "64", "--eval-pool", "32", "--bc-batches", "2
 
 def markov_config():
     """GPT-2-small (d768 L12 H12) over a 512-token vocab (a multiple of 128)."""
-    return gpt2_small().replace(vocab_size=MARKOV_VOCAB, pad_vocab_to_multiple=128, embd_pdrop=0.0, resid_pdrop=0.0,
-                                attn_pdrop=0.0)
-
-
-def markov_envs(device="cuda") -> dict:
-    """The maze (double_t_maze, its goal, 8 moves) and KQ-K chess (FEN, 8 moves)."""
-    maze = MazeTokenVecEnv(MazeVectorEnv(double_t_maze(), np.asarray([DOUBLE_T_GOAL]), max_steps=8, device=device))
-    return {"maze": maze, "chess": ChessEndgameVectorEnv(piece="Q", max_steps=8, obs_mode="fen", device=device)}
+    return port_bench.actor_config(MARKOV_VOCAB)
 
 
 def _frame_fens(obs: torch.Tensor) -> list:
@@ -2456,54 +2558,6 @@ def _check_markov_rollout(out, name: str, env, batch: int, n_turns: int) -> None
         check(not bad, f"markov chess: {len(bad)} of {len(fens)} observation FENs fail the engine: {bad[:3]}")
 
 
-def phase_markov(device="cuda", config=None) -> dict:
-    """Phase 3k: the Markov actors at bench_actor_markov's point —
-    `rollout_markov` of GPT-2-small (bf16 weights from a seed) through
-    `make_lm_step_fn`, B=512, 8 turns, on the maze and on chess: one
-    warm-up and MARKOV_REPS timed rollouts each, exact launches per rollout
-    (K1 8 x L; K4 8 x ACT_LEN x L), the rollout's invariants, env-steps/s;
-    one rollout each profiled. The two-trunk value-guided chess rollout
-    runs in phase 3u, the online loop's own."""
-    config = config or markov_config()
-    L = config.num_layers
-    t0 = time.perf_counter()
-    core = LMCore(config, device=device)
-    dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
-    lm = init_params(config, seed=0, device=device, dtype=dtype)
-    _sync(device)
-    log(f"markov setup (3k): gpt2-small vocab {config.vocab_size} {str(dtype)[6:]} weights: {time.perf_counter() - t0:.2f} s")
-    gen = torch.Generator(device=device).manual_seed(3)
-    out = {}
-    for name, env in markov_envs(device).items():
-        step_fn, carry0 = actor.make_lm_step_fn(core, MARKOV_B, total_len=env.OBS_LEN + env.ACT_LEN)
-
-        def rollout(state0):
-            return actor.rollout_markov(env, MARKOV_TURNS, step_fn, lm, carry0, state0, generator=gen)
-
-        rollout(env.reset(MARKOV_B, gen))  # warm-up
-        want = _want(L, fwd=MARKOV_TURNS, dec=MARKOV_TURNS * env.ACT_LEN)
-        times = []
-        for rep in range(MARKOV_REPS):
-            (ro, _), counts, s = _counted(rollout, env.reset(MARKOV_B, gen), device=device)
-            check(counts == want, f"markov {name} rollout {rep}: {_fmt_counts(counts)}, want {want}")
-            _check_markov_rollout(ro, name, env, MARKOV_B, MARKOV_TURNS)
-            times.append(s)
-            n_live = int(ro.turn_live.sum())
-            log(f"markov rollout (3k) {name} {rep} B={MARKOV_B} turns={MARKOV_TURNS}: {s:.4f} s, {_fmt_counts(counts)}; "
-                f"live turns {n_live}, return {float(ro.turn_reward.sum(1).mean()):.3f}, "
-                f"illegal rate {float(ro.turn_illegal.sum()) / max(n_live, 1):.3f}")
-        dt = sorted(times)[len(times) // 2]
-        log(f"markov rollout (3k) {name} median of {MARKOV_REPS}: {dt:.4f} s (min {min(times):.4f}, max {max(times):.4f}), "
-            f"env_steps_per_s={MARKOV_B * MARKOV_TURNS / dt:.1f} tokens_per_s="
-            f"{MARKOV_B * MARKOV_TURNS * (env.OBS_LEN + env.ACT_LEN) / dt:.1f}")
-        if torch.device(device).type == "cuda":
-            profile_run(f"markov rollout {name}", lambda: rollout(env.reset(MARKOV_B, gen)), dt)
-        out.update(_path_counts(f"markov_{name}", counts))
-        out[f"markov_{name}_s"] = dt
-
-    return out
-
-
 def phase_online_markov(device="cuda", config=None) -> dict:
     """Phase 3u: `online_ilql_markov` on chess (FEN, 8 moves, 8 turns) at
     full width: GPT-2-small with f32 parameters and bf16 activations, twin
@@ -2516,7 +2570,7 @@ def phase_online_markov(device="cuda", config=None) -> dict:
     config = config or markov_config()
     L = config.num_layers
     core = LMCore(config, device=device)
-    env = markov_envs(device)["chess"]
+    env = port_bench.markov_envs(device)["chess"]
     base, q1, q2, v = _train_modules(config, device)
     pi_beta = init_params(config, seed=9, device=device)
     ilql_config = ILQLConfig(beta=4.0)
@@ -3352,6 +3406,27 @@ def _max_diff(got: dict, ref: dict) -> float:
     return max((got[k].float() - ref[k].float()).abs().max().item() for k in ref)
 
 
+def _scaling_rows(device) -> None:
+    """`scaling.main`'s rows on this one card, in the one-rank group that is
+    up (3x's): the n = 1 rows measured (on the card the env and ILQL
+    weak-scaling rows, fixed total work and the census; gloo ranks skip
+    the weak rows), each ILQL step's launches 3L / L / L on the tensor
+    cores, the census at (1, 1, 1) empty, every n > 1 row not run."""
+    record, sections = {}, {}
+    with recorded_scripts(record, sections) as current:
+        current[0] = "scaling"
+        t0 = time.perf_counter()
+        rows = scaling.main(["--device", device, "--max-devices", "1"])
+        log(f"3x scaling.main (one-rank rows): {time.perf_counter() - t0:.1f} s")
+    _check_steps("scaling", record["scaling"])
+    ran = [r for r in rows if "not_run" not in r]
+    check(all(r["n_devices"] == 1 for r in ran) and len(ran) == (4 if device == "cuda" else 2), f"scaling: rows run {ran}")
+    check(all(r["not_run"] == "one device" for r in rows if "not_run" in r), "scaling: a row neither run nor marked")
+    census = [r for r in ran if r["workload"] == "ilql_collective_census"]
+    check(len(census) == 1 and census[0]["mesh"] == "dp1 fsdp1 mp1" and census[0]["census"] == {},
+          f"scaling: the (1, 1, 1) census {census}")
+
+
 SHARDED_REPS = 3  # 3x's timed steps
 
 
@@ -3378,8 +3453,7 @@ def phase_sharded(config, device="cuda") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from lmrl_gym_torch.core.io import distributed_init
-    from lmrl_gym_torch.parallel.mesh import MESH_AXES_SP, full_state_dict, is_sharded, load_mesh, shard_module, \
-        shard_train_state
+    from lmrl_gym_torch.parallel.mesh import MESH_AXES_SP, full_state_dict, is_sharded, load_mesh, shard_module
     from lmrl_gym_torch.parallel.ring_attention import make_ring_attention
 
     L = config.num_layers
@@ -3390,11 +3464,11 @@ def phase_sharded(config, device="cuda") -> dict:
         backend = dist.get_backend()
         check(backend == ("nccl" if device == "cuda" else "gloo"), f"backend {backend}")
         mesh = load_mesh((1, 1, 1), device=device)
-        ilql_config = ILQLConfig()
-        batch = _train_batch(device)
-        ref = init_ilql_state(*_train_modules(config, device), adamw(1e-4), adamw(1e-3), ilql_config)
-        state = init_ilql_state(*_train_modules(config, device), adamw(1e-4), adamw(1e-3), ilql_config)
-        shard_train_state(state, mesh)
+        # the port's scaling setup (bench's state from seeds, sharded by the rule
+        # tables) beside the same state unsharded, on bench's batch
+        batch = scaling._make_batch(TRAIN_B, TRAIN_T, mesh)
+        ref, ref_step = port_bench.ilql_state(config, 256, device)
+        state, step = scaling._make_ilql_setup(mesh, config)
         fields = ("base", "target_base_params", "q1_head", "q2_head", "v_head", "q1_target_params", "q2_target_params")
 
         def module(st, f):
@@ -3403,8 +3477,6 @@ def phase_sharded(config, device="cuda") -> dict:
 
         check(all(is_sharded(module(state, f)) and all(isinstance(p, DTensor) for p in module(state, f).parameters())
                   for f in fields), "3x: a module is not wrapped by FSDP2")
-        ref_step = make_ilql_train_step(LMCore(config, device), ilql_config, PAD_ID)
-        step = make_ilql_train_step(LMCore(config, device, mesh), ilql_config, PAD_ID, mesh)
         losses, times = {"unsharded": [], "sharded": []}, {"unsharded": [], "sharded": []}
         for i in range(1 + SHARDED_REPS):
             for name, fn, st in (("unsharded", ref_step, ref), ("sharded", step, state)):
@@ -3485,6 +3557,7 @@ def phase_sharded(config, device="cuda") -> dict:
         check(err <= TOL[torch.bfloat16][0], f"3x ring attention against K1: excess {err}")
         log(f"3x ring attention over a one-rank sp mesh against K1 (B={b} H={h} T={t} Dh={dh} bf16, right-padded): "
             f"max |ring − K1| {(ring_out.float() - k1_out.float()).abs().max().item():.3e}")
+        _scaling_rows(device)
     finally:
         dist.destroy_process_group()
     check(not dist.is_initialized(), "3x: the group is still up")
@@ -3653,10 +3726,10 @@ def phase_gptj() -> dict:
     step_fn, carry0 = actor.make_value_guided_step_fn(core, GPTJ_B, two_trunks=True, twin_q=True, beta=32.0)
     gen = torch.Generator(device="cuda").manual_seed(12)
     torch.cuda.synchronize()
-    n_params = _n_params(base)
+    n_params = port_bench.n_params(base)
     log(f"GPT-J setup (3j): two {n_params / 1e9:.3f}B-parameter trunks bf16 ({config.num_layers} layers, d"
         f"{config.hidden_size}, {config.num_heads} heads of {config.head_dim}), twin MLP Q heads f32 "
-        f"({2 * _n_params(q1) / 1e9:.3f}B), B={GPTJ_B}: {time.perf_counter() - t0:.2f} s")
+        f"({2 * port_bench.n_params(q1) / 1e9:.3f}B), B={GPTJ_B}: {time.perf_counter() - t0:.2f} s")
 
     def rollout():
         return actor.rollout_wordle(env, step_fn, params, carry0, GPTJ_B, constrain_vocab=True, generator=gen)
@@ -3794,7 +3867,7 @@ def phase_gptj_train() -> dict:
     step = make_ilql_train_step(core, ILQLConfig(), PAD_ID)
     batch = _train_batch()
     torch.cuda.synchronize()
-    n_base, n_head, n_v = _n_params(base), _n_params(q1), _n_params(v)
+    n_base, n_head, n_v = port_bench.n_params(base), port_bench.n_params(q1), port_bench.n_params(v)
     log(f"GPT-J train setup (3jt): {L} of {gptj_config().num_layers} layers at full width, {n_base / 1e9:.3f}B trunk "
         f"parameters f32 (trained, Adam) + target copy, twin MLP Q heads ({2 * n_head / 1e9:.3f}B) and V head "
         f"trained, target Q heads; B={TRAIN_B} T={TRAIN_T} next={NEXT_T}, bf16 activations: "
@@ -3821,7 +3894,7 @@ def phase_gptj_train() -> dict:
     losses = torch.stack(losses).cpu()
     check(bool(torch.isfinite(losses).all()), f"GPT-J ILQL losses {losses.tolist()}")
     check(len(set(losses.tolist())) == len(losses), f"GPT-J ILQL losses do not move: {losses.tolist()}")
-    flops = ilql_update_flops(config, n_base, n_head, n_v)
+    flops = ilql_update_flops(config, TRAIN_B, TRAIN_T, NEXT_T, n_base, n_head, n_v)
     ups = GPTJ_TRAIN_REPS / dt
     log(f"GPT-J ILQL train: {GPTJ_TRAIN_REPS} steps in {dt:.4f} s: updates_per_s={ups:.4f} "
         f"tokens_per_s={ups * TRAIN_B * TRAIN_T:.1f} mfu={flops * ups / PEAK_FLOPS[torch.bfloat16]:.4f} "
@@ -4231,9 +4304,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    cpu_count = None
     try:
         card = phase_device()
         log(f"phase 1: {time.perf_counter() - t_start:.1f} s")
+        cpu_count = start_cpu_count()
         t0 = time.perf_counter()
         errs = phase_kernel_checks()
         log(f"phase 2 serving shapes: {time.perf_counter() - t0:.1f} s")
@@ -4262,8 +4337,12 @@ def main() -> int:
         log(f"phases 2, 2p: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         launches = phase_slice()
-        launches.update(phase_train(launches["config"]))
-        log(f"phases 3, 3t: {time.perf_counter() - t0:.1f} s")
+        log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        b3 = phase_bench(cpu_count)
+        launches.update(phase_train(launches["config"], b3.pop("train_steps"), b3.pop("train_result")))
+        launches.update(b3)
+        log(f"phases 3b, 3k, 3t: {time.perf_counter() - t1:.1f} s")
         t0 = time.perf_counter()
         launches.update(phase_online(launches["config"]))
         launches.update(phase_gate())
@@ -4284,11 +4363,11 @@ def main() -> int:
         launches.update(phase_ppo_gates())
         log(f"phases 3n, 3l, 3w: {time.perf_counter() - t_slice7:.1f} s")
         t_slice8 = time.perf_counter()
-        for name, phase in (("3k", phase_markov), ("3u", phase_online_markov), ("3h", phase_chess_gate)):
+        for name, phase in (("3u", phase_online_markov), ("3h", phase_chess_gate)):
             t0 = time.perf_counter()
             launches.update(phase())
             log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
-        log(f"phases 3k, 3u, 3h: {time.perf_counter() - t_slice8:.1f} s")
+        log(f"phases 3u, 3h: {time.perf_counter() - t_slice8:.1f} s")
         t0 = time.perf_counter()
         phase_rerun(launches["config"], ppo_config, ppo_batch, launches.pop("chess_gate_result"))
         log(f"phase 3q: {time.perf_counter() - t0:.1f} s")
@@ -4322,6 +4401,10 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if cpu_count is not None and cpu_count.poll() is None:
+            cpu_count.kill()
+            cpu_count.wait()
     replaces = {
         "flash_fwd": "lmrl_gym_tpu/ops/flash_attention.py:59",
         "flash_bwd_dq": "lmrl_gym_tpu/ops/flash_attention.py:182",
