@@ -111,7 +111,16 @@ Phases, each of which exits non-zero on failure:
    wordle_ilql_gate.py`) at its own width (d256, L4, H4, byte vocab 259
    padded to 320) and a cut budget (15 BC, 15 %BC, 15 ILQL steps, eval
    batch 512, no OptimalPolicy bound): every stage runs, its launch counts
-   are the budget's, and every return is finite and in [-6, 0];
+   are the budget's, and every return is finite and in [-6, 0]; the gate
+   draws the JAX gate's random stream (slice 18, `core/threefry.py`), so
+   its behavior and ceiling statistics equal the four numbers of
+   `GATE_WORDLE_ILQL_r05.json` exactly; then the stream itself: one ILQL
+   batch's `ScriptedNoise` (B = 512) and one eval's `WordleNoise` (B =
+   1,024) drawn on the card equal the CPU's draws (integers, uniforms and
+   Gumbels to the bit, a Gumbel mismatch shown row by row; categorical
+   picks over masked logits equal), the Gumbel table (all 2^23 values)
+   equal, the gate's initial trunk and heads within 1e-6 of the CPU's,
+   and the draw time per 512- and 2,048-episode batch;
 3s. legal-set and text-env serving on the phase-3 weights: a
    `GenerationPolicy` over `ValueGuidedServer.generate_from_strs_legal`
    (the 400 vocab words as proposals) plays 8 `ReformatWordleEnv` games
@@ -189,7 +198,8 @@ Phases, each of which exits non-zero on failure:
    routes and f32) launched twice on the same inputs at a serving and a
    training shape; three ILQL steps at 3t's point, 3p's first PPO
    step and two steps of `lm_oracle.train_t5_oracle_lm` at 3d's check
-   width, each run twice from its seeds; and 3h's cut chess gate again in
+   width, each run twice from its seeds; the Wordle gate's JAX-stream
+   draws (3g's ILQL batch and eval noise) twice; and 3h's cut chess gate again in
    a subprocess with another PYTHONHASHSEED. Every comparison is exact
    (torch.equal; the gate's result JSON key for key): the port's card
    settings (`core/device.py::resolve_device`) make a seeded run repeat
@@ -354,6 +364,7 @@ from lmrl_gym_torch.algos.value_policy import (
     tokenize_histories_for_scoring,
 )
 from lmrl_gym_torch.cli.tasks import build_maze_env, generate_maze_chains
+from lmrl_gym_torch.core import threefry
 from lmrl_gym_torch.core.blocking import BlockingStrategy, Padding, Truncation
 from lmrl_gym_torch.core.device import resolve_device, torch_dtype
 from lmrl_gym_torch.core.optimizer import TrainState, adamw, set_to_zero, value_and_grads
@@ -382,9 +393,9 @@ from lmrl_gym_torch.envs.lm_oracle import build_lm_twenty_questions_env
 from lmrl_gym_torch.models.config import gpt2_small, gptj_6b
 from lmrl_gym_torch.models.encdec import EncDecCore, EncoderDecoder, T5Attention, flan_t5_xl
 from lmrl_gym_torch.models.generation import SamplingConfig
-from lmrl_gym_torch.models.heads import LinearHead, LinearHeadConfig, MLPHead, MLPHeadConfig
+from lmrl_gym_torch.models.heads import LinearHead, LinearHeadConfig, MLPHead, MLPHeadConfig, head_from_key
 from lmrl_gym_torch.models.interface import LMCore
-from lmrl_gym_torch.models.transformer import KVCache, Transformer, attention_einsum, init_params
+from lmrl_gym_torch.models.transformer import KVCache, Transformer, attention_einsum, init_params, init_params_from_key
 from lmrl_gym_torch.ops import _build
 from lmrl_gym_torch.ops import flash_attention as flash_module
 from lmrl_gym_torch.ops.decode_attention import _decode_splits, _device_sms, _plain_decode_attention, decode_attention
@@ -1452,9 +1463,108 @@ def phase_gate() -> dict:
         check(math.isfinite(v) and -6.0 <= v <= 0.0, f"gate {k} = {v}, want a finite return in [-6, 0]")
     log(f"gate ({' '.join(GATE_ARGS)}): {dt:.1f} s, {_fmt_counts(counts)}; "
         + " ".join(f"{k}={v:.3f}" for k, v in result.items() if isinstance(v, float)))
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), GATE_RECORD)) as f:
+        record = json.load(f)
+    for k in GATE_STATS:
+        check(result[k] == record[k], f"gate {k} = {result[k]!r} on the JAX stream, the record's {record[k]!r}")
+    log("gate behavior / ceiling stats on the JAX stream equal " + GATE_RECORD + "'s: "
+        + ", ".join(f"{k} {result[k]!r}" for k in GATE_STATS))
     out = {f"{name}_gate": n for name, n in zip(COUNT_NAMES, counts)}
     out["gate_s"] = dt
     return out
+
+
+GATE_RECORD = "GATE_WORDLE_ILQL_r05.json"  # the JAX gate's full-budget run (seed 5)
+GATE_STATS = ("behavior_return", "behavior_win", "consistent_ceiling_return", "consistent_ceiling_win")
+
+
+def _stream_draws(device) -> dict:
+    """At the gate's defaults: the first ILQL batch's draws (the second key
+    of split(PRNGKey(seed*977 + 13)), B = bsize) and the sampled eval's
+    (PRNGKey(seed*31), B = eval batch), with categorical picks from each
+    Gumbel: over the words behind a seeded mask, and for the decode slots
+    over seeded logits with the padded ids at -inf."""
+    args = wordle_ilql_gate.parse_args([])
+    n_words = len(WordleVocab.from_file())
+    config = wordle_ilql_gate.Gate.trunk_config(args, "bfloat16")
+    V = config.padded_vocab_size
+    key = threefry.split(threefry.PRNGKey(args.seed * 977 + 13))[1]
+    scripted = actor.ScriptedNoise.from_key(key, args.bsize, n_words, device)
+    evals = actor.WordleNoise.from_key(threefry.PRNGKey(args.seed * 31), args.eval_batch, V, n_words, device)
+    rng = np.random.RandomState(18)
+    words = torch.from_numpy(np.where(rng.rand(N_TRIES, 1, n_words) < 0.3, 0.0, -np.inf).astype(np.float32))
+    logits = rng.randn(1, 1, 1, V).astype(np.float32)
+    logits[..., config.vocab_size:] = -np.inf
+    logits = torch.from_numpy(logits)
+    return dict(guess=scripted.guess, rand_idx=scripted.rand_idx, uniform=scripted.uniform, env=scripted.env,
+                eval_decode=evals.decode, eval_env=evals.env,
+                pick_guess=torch.argmax(scripted.guess + words.to(device), dim=-1),
+                pick_env=torch.argmax(scripted.env + words.to(device), dim=-1),
+                pick_decode=torch.argmax(evals.decode + logits.to(device), dim=-1),
+                pick_eval_env=torch.argmax(evals.env + words.to(device), dim=-1))
+
+
+def _gumbel_rows(name: str, card: torch.Tensor, cpu: torch.Tensor) -> int:
+    """Logs the elements where two Gumbel draws differ, with their distance
+    in units in the last place (f32 bit patterns), up to 20 rows; returns
+    the largest distance."""
+    a, b = card.cpu().reshape(-1), cpu.reshape(-1)
+    idx = torch.nonzero(a != b).reshape(-1)
+    ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    log(f"stream {name}: {idx.numel()} of {a.numel()} Gumbels differ between the card and the CPU, at most "
+        f"{ulps.max().item()} ulp")
+    for i in idx[:20].tolist():
+        log(f"  {name}[{i}]: card {a[i].item()!r} cpu {b[i].item()!r} ({ulps[i].item()} ulp)")
+    return int(ulps.max().item())
+
+
+def phase_gate_stream(device="cuda") -> dict:
+    """Phase 3g's stream checks (slice 18): the JAX-stream draws on the card
+    against the CPU's, the Gumbel table, the initial weights and the draw
+    times. Integers, uniforms and picks must be equal; a Gumbel more than
+    1 ulp off fails, and any that differs is shown row by row. `device`
+    stands in for the card in a CPU rehearsal."""
+    t0 = time.perf_counter()
+    card, cpu = _stream_draws(device), _stream_draws("cpu")
+    for name in ("rand_idx", "uniform", "pick_guess", "pick_env", "pick_decode", "pick_eval_env"):
+        check(torch.equal(card[name].cpu(), cpu[name]), f"stream {name}: the card's draws differ from the CPU's")
+    for name in ("guess", "env", "eval_decode", "eval_env"):
+        if not torch.equal(card[name].cpu(), cpu[name]):
+            check(_gumbel_rows(name, card[name], cpu[name]) <= 1, f"stream {name}: Gumbels more than 1 ulp apart")
+    table_card, table_cpu = threefry._gumbel_table(device).cpu(), threefry._gumbel_table("cpu")
+    table_equal = torch.equal(table_card, table_cpu)
+    if not table_equal:
+        check(_gumbel_rows("table", table_card, table_cpu) <= 1, "the Gumbel tables are more than 1 ulp apart")
+    n_draws = sum(card[k].numel() for k in ("guess", "rand_idx", "uniform", "env", "eval_decode", "eval_env"))
+    del card, cpu
+    args = wordle_ilql_gate.parse_args([])
+    config = wordle_ilql_gate.Gate.trunk_config(args, "bfloat16")
+    modules = {}
+    for d in (device, "cpu"):
+        heads = wordle_ilql_gate.Gate.head_modules(args, config, d)
+        modules[d] = [init_params_from_key(config, threefry.PRNGKey(args.seed), device=d)]
+        modules[d] += [head_from_key(h, k) for h, k in zip(heads, threefry.split(threefry.PRNGKey(2), 3))]
+    init_err = max((a.cpu() - b).abs().max().item() for m_card, m_cpu in zip(modules[device], modules["cpu"])
+                   for a, b in zip(m_card.state_dict().values(), m_cpu.state_dict().values()))
+    check(init_err <= 1e-6, f"the gate's initial trunk and heads differ by {init_err} between the card and the CPU")
+    t_check = time.perf_counter() - t0
+    n_words = len(WordleVocab.from_file())
+    draw_ms = {}
+    for B in (512, 2048):
+        key = threefry.PRNGKey(B)
+        actor.ScriptedNoise.from_key(key, B, n_words, device)
+        _sync(device)
+        t1 = time.perf_counter()
+        for _ in range(10):
+            actor.ScriptedNoise.from_key(key, B, n_words, device)
+        _sync(device)
+        draw_ms[B] = (time.perf_counter() - t1) * 100.0
+    log(f"gate stream (3g): card draws as the CPU's ({n_draws} values; Gumbel table of 2^23 "
+        f"{'equal' if table_equal else 'within 1 ulp'}), initial "
+        f"weights within {init_err:.3g}, {t_check:.1f} s; ScriptedNoise draws {draw_ms[512]:.2f} ms per 512-episode "
+        f"batch, {draw_ms[2048]:.2f} ms per 2,048 (wall, 10 draws each)")
+    return {"gate_stream_s": time.perf_counter() - t0, "gate_draw_ms_512": draw_ms[512],
+            "gate_draw_ms_2048": draw_ms[2048], "gate_init_err": init_err}
 
 
 def phase_text_env(serving: ValueRLParams, config) -> dict:
@@ -4278,7 +4388,8 @@ def phase_rerun(config, ppo_config, ppo_batch, chess_result: dict) -> None:
     n = _rerun_kernels()
     log(f"rerun kernels (3q): {n} cases, each two launches bitwise equal, {time.perf_counter() - t0:.2f} s")
     for name, run in (("ILQL", lambda: _rerun_ilql(config)), ("PPO", lambda: _rerun_ppo(ppo_config, ppo_batch)),
-                      ("T5 oracle", _rerun_t5)):
+                      ("T5 oracle", _rerun_t5),
+                      ("Wordle gate's JAX stream", lambda: list(_stream_draws("cuda").values()))):
         t0 = time.perf_counter()
         first = run()
         second = run()
@@ -4346,6 +4457,7 @@ def main() -> int:
         t0 = time.perf_counter()
         launches.update(phase_online(launches["config"]))
         launches.update(phase_gate())
+        launches.update(phase_gate_stream())
         launches.update(phase_text_env(launches["serving"], launches["config"]))
         log(f"phases 3o, 3g, 3s: {time.perf_counter() - t0:.1f} s")
         t_slice6 = time.perf_counter()

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lmrl_gym_torch.core import threefry
 from lmrl_gym_torch.core.device import inference
 from lmrl_gym_torch.core.random import categorical
 from lmrl_gym_torch.envs.wordle.vector import GREEN, N_CHARS, N_TRIES, YELLOW, WordleVectorEnv, initial_state
@@ -82,6 +83,14 @@ class WordleRollout(NamedTuple):
         return live_by_slot & is_action[None, :]
 
 
+def _device_keys(keys: torch.Tensor, device) -> torch.Tensor:
+    """Keys derived on the host, copied to `device` without waiting on it."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return keys.pin_memory().to(device, non_blocking=True)
+    return keys.to(device)
+
+
 class ScriptedNoise(NamedTuple):
     """Draws of one scripted rollout, handed in to replay another sampler's,
     per turn in the JAX package's order: `guess` [N_TRIES, B, V_words]
@@ -94,6 +103,22 @@ class ScriptedNoise(NamedTuple):
     uniform: torch.Tensor
     env: torch.Tensor
 
+    @classmethod
+    def from_key(cls, key: torch.Tensor, batch: int, n_words: int, device) -> "ScriptedNoise":
+        """The draws the JAX package's `rollout_wordle_scripted(env, key, ...)`
+        makes (`lmrl_gym_tpu/loops/actor.py:332`): the key split over the
+        turns, each turn's key into (guess, random word, mixture, feedback)
+        keys, and their draws (`core/threefry.py`). The keys are derived on
+        the host; the draws of all turns are made on `device` in one pass
+        for the two Gumbels and one for the three small draws."""
+        turn = threefry.split(threefry.split(key.cpu(), N_TRIES), 4)  # [N_TRIES, 4, 2]: kg, kr, km, ke
+        keys = torch.cat([turn[:, [0, 3]], threefry.split(turn[:, 1], 2), turn[:, 2:3]], dim=1)
+        keys = _device_keys(keys, device)  # [N_TRIES, 5, 2]: kg, ke, randint's two, km
+        gumbel = threefry.gumbel(keys[:, :2], (batch, n_words))
+        bits = threefry.random_bits(keys[:, 2:], (batch,))
+        return cls(guess=gumbel[:, 0], rand_idx=threefry.randint_from_bits(bits[:, 0], bits[:, 1], 0, n_words),
+                   uniform=threefry.uniform_from_bits(bits[:, 2]), env=gumbel[:, 1])
+
 
 class WordleNoise(NamedTuple):
     """Sampling noise for one rollout, handed in to replay another sampler's
@@ -102,6 +127,18 @@ class WordleNoise(NamedTuple):
 
     decode: torch.Tensor
     env: torch.Tensor
+
+    @classmethod
+    def from_key(cls, key: torch.Tensor, batch: int, vocab_size: int, n_words: int, device) -> "WordleNoise":
+        """The draws the JAX package's `rollout_wordle(..., key, ...)` makes
+        (`lmrl_gym_tpu/loops/actor.py:182`): the key split over the turns,
+        each turn's key into (decode, feedback) keys, the decode key over
+        the action slots; a Gumbel over the (padded) vocab per slot and one
+        over the words per turn, each kind in one pass on `device`."""
+        turn = threefry.split(threefry.split(key.cpu(), N_TRIES), 2)  # [N_TRIES, 2, 2]: kd, ke
+        keys = _device_keys(torch.cat([threefry.split(turn[:, 0], 2 * N_CHARS), turn[:, 1:]], dim=1), device)
+        return cls(decode=threefry.gumbel(keys[:, :-1], (batch, vocab_size)),
+                   env=threefry.gumbel(keys[:, -1], (batch, n_words)))
 
 
 # step_fn(params, tokens [B,T], carry) -> (logits [B,T,V] f32, carry).

@@ -181,3 +181,26 @@ class MLPHead(nn.Module):
                 raise ValueError("MLPHead dropout in training draws its mask from `generator`; pass one")
             h = dropout(h, cfg.dropout, generator)
         return head_dense(self.dense2, h, dtype, cfg.matmul_precision)
+
+
+def head_from_key(head: nn.Module, key: torch.Tensor) -> nn.Module:
+    """`head` (a `LinearHead` or `MLPHead`) with the weights the JAX
+    package's `init_head_params(flax head, input_dim, key)` draws
+    (`lmrl_gym_tpu/models/heads.py:124`): each normal-initialized Dense
+    kernel under its module's flax key (`core/threefry.py`; within 1e-6 of
+    JAX's), constant kernels and biases as built. Loaded in place; returns
+    `head`. `key` is a JAX key as an int64 [2] tensor."""
+    from lmrl_gym_torch.core.threefry import flax_normal_init
+    from lmrl_gym_torch.models.convert import head_params_from_jax, head_params_to_jax
+
+    cfg = head.config
+    if isinstance(head, MLPHead):
+        l2 = cfg.layer2_initializer_range if cfg.layer2_initializer_range is not None else cfg.initializer_range
+        std = {"dense1": cfg.initializer_range, "dense2": None if l2 == 0.0 else l2}
+    else:
+        std = {"dense": cfg.initializer_range}
+    device = next(head.parameters()).device
+    drawn = flax_normal_init(head_params_to_jax(head.state_dict()), key.to(device),
+                             lambda path: std[path[0]] if path[-1] == "kernel" else None)
+    head.load_state_dict(head_params_from_jax(drawn))
+    return head

@@ -499,6 +499,29 @@ def init_params(
     return Transformer(config, device=device, dtype=dtype, seed=seed)
 
 
+def init_params_from_key(
+    config: TransformerConfig,
+    key: torch.Tensor,
+    device: DeviceLike = None,
+    dtype: torch.dtype = torch.float32,
+) -> Transformer:
+    """The trunk the JAX package's `init_params(config, key)` draws
+    (`lmrl_gym_tpu/models/transformer.py:424`, flax `Module.init`): each
+    Dense kernel and Embed table normal(initializer_range) under its
+    module's flax key, drawn on `device` (`core/threefry.py`; within 1e-6
+    of JAX's: its erf⁻¹ is XLA's polynomial over torch's log1p); zero
+    biases, unit norm scales. `key` is a JAX key as an int64 [2] tensor."""
+    from lmrl_gym_torch.core.threefry import flax_normal_init
+    from lmrl_gym_torch.models.convert import params_from_jax, params_to_jax
+
+    model = Transformer(config, device=device, dtype=dtype)
+    tree = params_to_jax(model.state_dict(), config)
+    drawn = flax_normal_init(tree, key.to(model.wte.weight.device),
+                             lambda path: config.initializer_range if path[-1] in ("kernel", "embedding") else None)
+    model.load_state_dict(params_from_jax(drawn, config))
+    return model
+
+
 def mask_pad_logits(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """finfo.min above the true vocab (generation must not sample pad ids)."""
     V = logits.shape[-1]

@@ -23,11 +23,23 @@ gradient step trains on a fresh batch from the scripted behavior policy.
      heads.
   5. the host OptimalPolicy's expected-information bound.
 
-Gate: ILQL guided (sampled, fixed seeds) should beat %BC. The JAX package's
-draws come from PRNG keys, the port's from `torch.Generator`s seeded with
-the same integers, so the two runs share a recipe, not a random stream.
-A `Replay` hands the gate another run's draws and initial weights, so a
-test can hold it to the JAX gate on the JAX gate's own draws.
+Gate: ILQL guided (sampled, fixed seeds) should beat %BC.
+
+The gate draws the JAX gate's own random stream: the same PRNG keys, split
+in the same order, through the port of JAX's threefry PRNG
+(`core/threefry.py`), on the gate's device:
+
+  behavior / ceiling stats   PRNGKey(1000 + s) / PRNGKey(2000 + s), s < 2
+  BC and %BC data            PRNGKey(seed*131 + 7), split once per update
+  ILQL data                  PRNGKey(seed*977 + 13), split once per update
+  every eval                 PRNGKey(seed*31 + greedy)
+  initial trunk (BC, %BC)    PRNGKey(seed), as flax's `Module.init`
+  Q1, Q2, V heads            split(PRNGKey(2), 3)
+
+The JAX gate's step keys (PRNGKey(seed + 1) for BC, PRNGKey(3) for ILQL)
+feed only dropout, which runs at rate 0 here, so nothing is drawn for
+them. A `Replay` hands the gate another run's draws and initial weights
+instead, so a test can hold its glue to the JAX gate on recorded draws.
 """
 from __future__ import annotations
 
@@ -39,6 +51,8 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from lmrl_gym_torch.core.threefry import PRNGKey, split
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -103,15 +117,15 @@ class Replay(NamedTuple):
 
 class Gate:
     """The gate's model, env and eval harness, built from its flags; one
-    method per stage. Draws come from `torch.Generator`s seeded with the
-    JAX gate's key integers, or from `replay`. `dtype` is the trunk's
-    activation dtype (bf16, as the JAX gate runs)."""
+    method per stage. Draws and initial weights come from the JAX gate's
+    keys (int64 [2] tensors, kept on the host; the draws are made on the
+    gate's device), or from `replay`. `dtype` is the trunk's activation
+    dtype (bf16, as the JAX gate runs)."""
 
     def __init__(self, args: argparse.Namespace, dtype: str = "bfloat16", replay: Optional[Replay] = None):
         from lmrl_gym_torch.core.device import resolve_device
         from lmrl_gym_torch.envs.wordle.vector import WordleVectorEnv, WordleVocab
         from lmrl_gym_torch.loops import actor
-        from lmrl_gym_torch.models.config import TransformerConfig
         from lmrl_gym_torch.models.interface import LMCore
         from lmrl_gym_torch.text.tokenizer import ByteTokenizer
 
@@ -120,12 +134,7 @@ class Gate:
         self.device = resolve_device(args.device)
         self.t_start = time.time()
         self.tokenizer = ByteTokenizer()
-        self.config = TransformerConfig(
-            vocab_size=self.tokenizer.vocab_size, hidden_size=args.hidden,
-            num_layers=args.layers, num_heads=args.heads,
-            max_position_embeddings=actor.EPISODE_LEN, pad_vocab_to_multiple=64,
-            embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype=dtype,
-        )
+        self.config = self.trunk_config(args, dtype)
         self.core = LMCore(self.config, device=self.device)
         self.vocab = WordleVocab.from_file()
         self.venv = WordleVectorEnv(self.vocab, device=self.device)
@@ -137,48 +146,76 @@ class Gate:
             self.core, args.eval_batch, two_trunks=True, twin_q=True, beta=args.beta
         )
 
+    @staticmethod
+    def trunk_config(args: argparse.Namespace, dtype: str):
+        from lmrl_gym_torch.loops.actor import EPISODE_LEN
+        from lmrl_gym_torch.models.config import TransformerConfig
+        from lmrl_gym_torch.text.tokenizer import ByteTokenizer
+
+        return TransformerConfig(
+            vocab_size=ByteTokenizer().vocab_size, hidden_size=args.hidden,
+            num_layers=args.layers, num_heads=args.heads,
+            max_position_embeddings=EPISODE_LEN, pad_vocab_to_multiple=64,
+            embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype=dtype,
+        )
+
+    @staticmethod
+    def head_modules(args: argparse.Namespace, config, device):
+        """The (q1, q2, v) MLP heads, built but not yet drawn: second layers
+        zero, bias --value-bias-init."""
+        from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
+
+        D = config.hidden_size
+        kw = dict(input_dim=D, hidden_dim=2 * D, layer2_initializer_range=0.0,
+                  layer2_bias_init=args.value_bias_init, matmul_precision=args.head_matmul_precision)
+        q_cfg = MLPHeadConfig(output_dim=config.padded_vocab_size, **kw)
+        v_cfg = MLPHeadConfig(output_dim=1, **kw)
+        return tuple(MLPHead(cfg, device=device) for cfg in (q_cfg, q_cfg, v_cfg))
+
     def log(self, msg: str) -> None:
         print(f"{msg} ({time.time() - self.t_start:.0f}s)", flush=True)
 
-    def gen(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
+    def scripted(self, batch: int, p_smart: float, p_repeat: float, key: torch.Tensor):
+        from lmrl_gym_torch.loops.actor import ScriptedNoise, rollout_wordle_scripted
 
-    def scripted(self, batch: int, p_smart: float, p_repeat: float, generator):
-        from lmrl_gym_torch.loops.actor import rollout_wordle_scripted
-
-        noise = None if self.replay is None else next(self.replay.scripted)
-        return rollout_wordle_scripted(self.venv, batch, p_smart, p_repeat, generator=generator, noise=noise)
+        if self.replay is None:
+            noise = ScriptedNoise.from_key(key, batch, len(self.vocab), self.device)
+        else:
+            noise = next(self.replay.scripted)
+        return rollout_wordle_scripted(self.venv, batch, p_smart, p_repeat, noise=noise)
 
     # ---- 1. behavior / ceiling statistics (on-device scripted rollouts)
     def scripted_stats(self, p_smart: float, seed0: int, p_repeat: float = 0.0, n_batches: int = 2):
         rets, wins = [], []
         for s in range(n_batches):
-            ro = self.scripted(2048, p_smart, p_repeat, self.gen(seed0 + s))
+            ro = self.scripted(2048, p_smart, p_repeat, PRNGKey(seed0 + s))
             rets.append(float(episode_return(ro).mean()))
             wins.append(float(ro.win.float().mean()))
         return float(np.mean(rets)), float(np.mean(wins))
 
     # ---- 2-3. streaming BC (a fresh scripted-mixture batch every update)
     def train_bc_stream(self, steps: int, seed: int, filter_frac: Optional[float] = None):
-        """BC (or %BC with `filter_frac`) from a fresh trunk (from `seed`, or
-        a copy of the replayed one). Returns (params, last loss)."""
+        """BC (or %BC with `filter_frac`) from a fresh trunk (drawn from
+        PRNGKey(seed), or a copy of the replayed one). Returns (params, last
+        loss)."""
         from lmrl_gym_torch.algos.bc import BCBatch, BCConfig, BCTrainState, make_bc_train_step
         from lmrl_gym_torch.core.optimizer import OptimizerConfig, TrainState, make_optimizer, warmup_cosine_decay_schedule
-        from lmrl_gym_torch.models.transformer import init_params
+        from lmrl_gym_torch.models.transformer import init_params_from_key
 
         args = self.args
         if self.replay is None:
-            params = init_params(self.config, seed=seed, device=self.device)
+            params = init_params_from_key(self.config, PRNGKey(seed), device=self.device)
         else:
             params = copy.deepcopy(self.replay.trunk)
         sched = warmup_cosine_decay_schedule(0.0, args.lr, min(args.warmup, max(1, steps // 4)), steps)
         state = BCTrainState(model=TrainState(params, make_optimizer(OptimizerConfig(lr=sched), params)))
         step = make_bc_train_step(self.core, BCConfig(), self.tokenizer.pad_token_id)
-        data_gen = self.gen(seed * 131 + 7)
+        data_key = PRNGKey(seed * 131 + 7)
         n_gen = args.bsize if filter_frac is None else self.pbc_gen
         loss = torch.zeros(())
         for it in range(1, steps + 1):
-            ro = self.scripted(n_gen, args.prob_smart, args.prob_repeat, data_gen)
+            data_key, batch_key = split(data_key)
+            ro = self.scripted(n_gen, args.prob_smart, args.prob_repeat, batch_key)
             # copies out of inference mode: autograd saves the token ids
             toks, mask = ro.tokens.clone(), ro.token_action_mask().float()
             if filter_frac is not None:
@@ -192,13 +229,17 @@ class Gate:
 
     # ---- on-device eval harness (fused actor; fixed seeds)
     def _eval(self, name: str, greedy: bool, step_fn, params, carry0):
-        from lmrl_gym_torch.loops.actor import rollout_wordle
+        from lmrl_gym_torch.loops.actor import WordleNoise, rollout_wordle
 
         args = self.args
-        noise = None if self.replay is None else next(self.replay.evals)
+        if self.replay is None:
+            noise = WordleNoise.from_key(PRNGKey(args.seed * 31 + int(greedy)), args.eval_batch,
+                                         self.config.padded_vocab_size, len(self.vocab), self.device)
+        else:
+            noise = next(self.replay.evals)
         out = rollout_wordle(
             self.venv, step_fn, params, carry0, args.eval_batch, args.eval_temp, greedy,
-            constrain_vocab=args.constrain_vocab, generator=self.gen(args.seed * 31 + int(greedy)), noise=noise,
+            constrain_vocab=args.constrain_vocab, noise=noise,
         )
         ret, win = float(episode_return(out).mean()), float(out.win.float().mean())
         self.log(f"{name}{' greedy' if greedy else ''}: return {ret:.3f} win {win:.3f} "
@@ -220,23 +261,20 @@ class Gate:
 
     # ---- 4. streaming offline ILQL from the BC trunk
     def init_ilql(self, bc_params):
-        """The ILQL state on a copy of the BC trunk, with fresh heads (seeds
-        2, 3, 4; second layers zero, bias --value-bias-init) or the replayed
-        ones. Returns (state, ilql_config)."""
+        """The ILQL state on a copy of the BC trunk, with fresh heads (drawn
+        from split(PRNGKey(2), 3); second layers zero, bias
+        --value-bias-init) or the replayed ones. Returns (state,
+        ilql_config)."""
         from lmrl_gym_torch.algos.ilql import ILQLConfig, init_ilql_state
         from lmrl_gym_torch.core.optimizer import adamw, cosine_decay_schedule
-        from lmrl_gym_torch.models.heads import MLPHead, MLPHeadConfig
+        from lmrl_gym_torch.models.heads import head_from_key
 
         args = self.args
-        D = self.config.hidden_size
-        kw = dict(input_dim=D, hidden_dim=2 * D, layer2_initializer_range=0.0,
-                  layer2_bias_init=args.value_bias_init, matmul_precision=args.head_matmul_precision)
-        q_cfg = MLPHeadConfig(output_dim=self.config.padded_vocab_size, **kw)
-        v_cfg = MLPHeadConfig(output_dim=1, **kw)
-        heads = self.replay.heads if self.replay is not None else (
-            MLPHead(q_cfg, device=self.device, seed=2), MLPHead(q_cfg, device=self.device, seed=3),
-            MLPHead(v_cfg, device=self.device, seed=4),
-        )
+        if self.replay is None:
+            heads = tuple(head_from_key(h, k) for h, k in zip(self.head_modules(args, self.config, self.device),
+                                                               split(PRNGKey(2), 3)))
+        else:
+            heads = self.replay.heads
         ilql_config = ILQLConfig(gamma=args.gamma, polyak_alpha=args.polyak, beta=args.beta,
                                  use_separate_target_base=True)
         head_lr = cosine_decay_schedule(args.lr, max(1, args.ilql_steps))
@@ -252,10 +290,11 @@ class Gate:
 
         args = self.args
         train_step = make_ilql_train_step(self.core, ilql_config, self.tokenizer.pad_token_id)
-        data_gen = self.gen(args.seed * 977 + 13)
+        data_key = PRNGKey(args.seed * 977 + 13)
         curve = []
         for it in range(1, args.ilql_steps + 1):
-            ro = self.scripted(args.bsize, args.prob_smart, args.prob_repeat, data_gen)
+            data_key, batch_key = split(data_key)
+            ro = self.scripted(args.bsize, args.prob_smart, args.prob_repeat, batch_key)
             state, loss, logs = train_step(state, wordle_rollout_to_ilql_batch(ro))
             if it % args.eval_every == 0 or it == args.ilql_steps:
                 self.log(f"ilql step {it}: loss {float(loss):.3f} q~{float(logs['q1']['mean']):.2f} "
